@@ -1,0 +1,1 @@
+"""Subpackage of efficientdet_tpu_torch."""
