@@ -24,7 +24,22 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 5. gpu_vs_cpu: the same model in float32 (TF32 off) on the card and on the
    CPU (which takes the kernels' plain versions) at batch 2: raw head
    outputs, then detections;
-6. the kernels line, the card line, and the last line,
+6. mbconv_kernels: csrc/fused_mbconv.cu's three launchers (packed, row-
+   padded, NHWC) against their plain versions in f32 and bf16, on the JAX
+   tests' tiny cases and the D0 blocks at batch 2, the row-padded output's
+   gap lanes exactly 0; then the per-block harness at the recorded D0
+   (batch 128) and D4 (batch 16) shapes: each kernel against its plain
+   version there (bf16, the same tolerance, rp gaps exactly 0), then its ms
+   beside its bound, its plain version's and the port's unfused
+   MBConvBlock's (module_ms);
+7. chain: D0's stages 1-3 at batch 128 and D4's at batch 16, every route
+   against the block chain (bf16): ms, speedup, error, and one packed-kernel
+   launch per 'pallas' block per call;
+8. tap_floor: csrc/tap_floor.cu against its plain version, then the FMA
+   rates (f32/bf16 x chains 1/4), the f32 swish rate, the 1x1 products'
+   ms, and the stages-1-3 floor against the chain phase's D0 baseline and
+   the pipeline phase's ms per call;
+9. the kernels line, the card line, and the last line,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -42,18 +57,31 @@ import time
 
 import numpy as np
 
+from efficientdet_tpu_torch.experiments.timing import (
+    HBM_BYTES_S,
+    PEAK_BF16,
+    PEAK_F32_CUDA_CORES,
+    bound,
+    cuda_ms,
+)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet: dense peaks and memory rate
-HBM_BYTES_S = 3.35e12
-PEAK_BF16 = 989e12
-PEAK_F32_CUDA_CORES = 67e12
 # float32 operations of one IoU test in the NMS mask: 2 min, 2 max, 2 sub,
 # 2 clamp, 1 mul (intersection), 1 add + 1 sub (union), 1 max, 1 div,
 # 1 compare; the areas (per box) are not counted
 NMS_OPS_PER_PAIR = 14
 
+SOURCES = ["head_pointwise", "nms_suppress", "fused_mbconv", "tap_floor"]
 D0_PIXELS = 64 * 64 + 32 * 32 + 16 * 16 + 8 * 8 + 4 * 4  # pixel rows per image at 512
+# the JAX tests' tiny MBConv cases (name, batch, side, cin, cexp, cout, k, se)
+MBCONV_TINY = [("tiny_exp_skip", 2, 16, 8, 48, 8, 3, 2),
+                      ("tiny_noexp", 2, 16, 8, 8, 4, 3, 2),
+                      ("tiny_k5", 2, 8, 8, 24, 8, 5, 2)]
+MBCONV_STEPS = 10  # timed calls per kernel and block (the plain version: a fifth)
+CHAIN_STEPS = 10
+FLOOR_REPEATS = 512
+FLOOR_STEPS = 10
 CHECK_BATCH = 16   # the kernels against their plain versions; the main-path calls
 BENCH_BATCH = 128  # timing: the batch the JAX package's bench.py measures
 
@@ -70,63 +98,71 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events around ``iters`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(bytes_moved: float, ops: float, peak_ops: float):
-    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
-    t_ops = ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def phase_device(cuda_build):
     line = card_line()
     t0 = time.perf_counter()
-    cuda_build.build(["head_pointwise", "nms_suppress"])
+    cuda_build.build(SOURCES)
     build_s = time.perf_counter() - t0
     for name, log in cuda_build.build_logs.items():
         print(f"--- nvcc {name} ---\n{log}", file=sys.stderr)
     name, limit = (s.strip() for s in line.split(",", 1))
+    regs, spills = _registers(cuda_build.build_logs.values())
     emit({"phase": "device", "name": name, "power_limit": limit, "build_s": build_s,
-          "registers": _registers(cuda_build.build_logs.values())})
+          "registers": regs, "spill_store_bytes": spills})
     return line
 
 
-# the main path's kernel instances (out=90 -> 12 column tiles, out=36 -> 5)
-_MAIN_PATH_KERNELS = ("head_pw_mma_kernel<12>", "head_pw_mma_kernel<5>",
-                      "nms_mask_kernel", "nms_scan_kernel")
+# the kernels whose ptxas report the device line carries, every instance
+_MAIN_PATH_KERNELS = ("head_pw_mma_kernel", "head_pw_kernel", "nms_mask_kernel",
+                      "nms_scan_kernel", "mbconv_pool_kernel", "mbconv_se_kernel",
+                      "mbconv_proj_kernel", "tap_floor_fma_f32", "tap_floor_fma_bf16",
+                      "tap_floor_swish_f32")
+
+
+def _demangle(mangled):
+    """``name<args>`` of a mangled kernel name, or None if not one of ours."""
+    m = re.search("|".join(f"{len(k)}{k}" for k in _MAIN_PATH_KERNELS), mangled)
+    if not m:
+        return None
+    name = m.group().lstrip("0123456789")
+    rest = mangled[m.end():]
+    if not rest.startswith("I"):
+        return name
+    rest = rest[1:]
+    args, i = [], 0
+    while i < len(rest) and rest[i] != "E":
+        if rest[i] == "L":  # literal: L <type letter> <value> E
+            j = rest.index("E", i)
+            args.append(rest[i + 2:j])
+            i = j + 1
+        elif rest[i].isdigit():  # length-prefixed type name
+            n = re.match(r"\d+", rest[i:]).group()
+            i += len(n)
+            args.append(rest[i:i + int(n)])
+            i += int(n)
+        else:  # builtin type letter
+            args.append({"f": "float"}.get(rest[i], rest[i]))
+            i += 1
+    return f"{name}<{','.join(args)}>"
 
 
 def _registers(logs):
-    """Registers per thread of the main path's kernels, from ptxas -v."""
-    regs, entry = {}, None
+    """Registers per thread and spill-store bytes of each kernel instance, from ptxas -v."""
+    regs, spills, entry = {}, {}, None
     for log in logs:
         for ln in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
-                k = re.search(r"(head_pw_mma_kernel|head_pw_kernel|nms_mask_kernel"
-                              r"|nms_scan_kernel)(?:ILi(\d+)E)?", m.group(1))
-                entry = k and (f"{k.group(1)}<{k.group(2)}>" if k.group(2) else k.group(1))
+                entry = _demangle(m.group(1))
                 continue
+            m = re.search(r"(\d+) bytes spill stores", ln)
+            if m and entry and int(m.group(1)):
+                spills[entry] = int(m.group(1))
             m = re.search(r"Used (\d+) registers", ln)
-            if m and entry in _MAIN_PATH_KERNELS:
+            if m and entry:
                 regs[entry] = int(m.group(1))
                 entry = None
-    return regs
+    return regs, spills
 
 
 def _head_inputs(rows, cin, n, dtype, seed):
@@ -306,7 +342,7 @@ def phase_pipeline(et, hk, nk, card, profile_dir):
               **_profile(predict, big, profile_dir, rec["ms_per_call"])})
     del big, images, model
     torch.cuda.empty_cache()
-    return launches
+    return launches, rec["ms_per_call"]
 
 
 def _profile(predict, images, out_dir, ms_per_call, calls: int = 3):
@@ -421,6 +457,131 @@ def phase_gpu_vs_cpu(et, tn):
           "head_outputs": heads, "nms_same_heads": same_heads, "end_to_end": end_to_end})
 
 
+def phase_mbconv(mk, pm):
+    """The three launchers vs their plain versions at small shapes; then the
+    per-block harness, which holds them against their plain versions again
+    at every BLOCKS shape (D0 at batch 128, D4 at 16) before timing them."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [pm.BlockShape(*c) for c in MBCONV_TINY] + [pm.BLOCKS[n]._replace(batch=2) for n in ("d0s1", "d0s2b1", "d0s3b1")]
+    checks, worst = [], {"packed": 0.0, "rp": 0.0, "nhwc": 0.0}
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for shape in cases:
+            block, _ = pm.torch_block(shape, dtype, device="cuda")
+            packed = pm.pack_params(block)
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            x = torch.randn((shape.batch, shape.hw, shape.hw, shape.cin), generator=gen,
+                            device="cuda").to(dtype)
+            mask = mk.rp_mask(shape.hw, dtype, "cuda")
+            xp, xrp = mk.pack_x(x), mk.pack_rp(x)
+            pairs = {
+                "packed": (mk.packed_mbconv(xp, packed, shape),
+                           mk.packed_mbconv_reference(xp, packed, shape)),
+                "rp": (mk.packed_mbconv_rp(xrp, mask, packed, shape),
+                       mk.packed_mbconv_rp_reference(xrp, mask, packed, shape)),
+                "nhwc": (mk.fused_mbconv_nhwc(x, packed, shape.ksize, shape.has_skip),
+                         mk.fused_mbconv_nhwc_reference(x, packed, shape.ksize, shape.has_skip)),
+            }
+            torch.cuda.synchronize()
+            gap = (pairs["rp"][0].float() * (1 - mask.float())).abs().max().item()
+            rec = {"dtype": dname, "shape": shape.name, "batch": shape.batch, "rp_gap_max": gap}
+            for name, (got, ref) in pairs.items():
+                rec[name] = pm.check_kernel(got, ref, dtype)
+                worst[name] = max(worst[name], rec[name]["max_abs_err"])
+            checks.append(rec)
+            if gap != 0.0 or not all(rec[n]["ok"] for n in pairs):
+                raise AssertionError(f"fused MBConv kernel disagrees with its plain version: {rec}")
+
+    # the per-block harness: its run is the rp and NHWC launchers' main path
+    for fn in (mk.packed_mbconv, mk.packed_mbconv_rp, mk.fused_mbconv_nhwc):
+        fn.launches = 0
+    blocks = []
+    for name, shape in pm.BLOCKS.items():
+        rec = pm.run_block(shape, steps=MBCONV_STEPS)
+        for layout in ("packed", "rp", "nhwc"):
+            worst[layout] = max(worst[layout], rec["vs_plain"][layout]["max_abs_err"])
+        blocks.append(rec)
+        torch.cuda.empty_cache()
+    launches = {"packed": mk.packed_mbconv.launches, "rp": mk.packed_mbconv_rp.launches,
+                "nhwc": mk.fused_mbconv_nhwc.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the block harness did not launch every layout: {launches}")
+    emit({"phase": "mbconv_kernels", "checks": checks, "blocks": blocks,
+          "harness_launches": launches, "steps": MBCONV_STEPS})
+    return worst, blocks, launches
+
+
+def phase_chain(mk, pc):
+    """Every route of the D0 and D4 chains against the block chain."""
+    import torch
+
+    mk.packed_mbconv.launches = 0
+    out, expected = [], 0
+    for spec in (pc.D0_CHAIN, pc.D4_CHAIN):
+        rec = pc.run_chain(spec, steps=CHAIN_STEPS)
+        # one check call, three warm-up calls and the timed ones, per route
+        expected += sum(r.count("pallas") for r in spec.routes) * (4 + CHAIN_STEPS)
+        out.append(rec)
+        torch.cuda.empty_cache()
+    launches = mk.packed_mbconv.launches
+    if launches != expected:
+        raise AssertionError(f"the chains launched the packed kernel {launches} times, not {expected}")
+    emit({"phase": "chain", "chains": out, "packed_launches": launches, "steps": CHAIN_STEPS})
+    return out, launches
+
+
+def phase_tap_floor(tk, tf, chain_d0_ms, d0_ms):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x32 = torch.rand((64, 1024), generator=gen, device="cuda") * 2 - 1
+    checks, worst = [], 0.0
+    for op, dtype, taps in (("fma", torch.float32, 9), ("fma", torch.float32, 3),
+                            ("fma", torch.bfloat16, 9), ("swish", torch.float32, 1)):
+        for chains in (1, 4):
+            x = x32.to(dtype)
+            got = tk.tap_floor(x, op, taps, 2, chains).float()
+            ref = tk.tap_floor_reference(x, op, taps, 2, chains).float()
+            d = (got - ref).abs()
+            if dtype == torch.float32:
+                # an fmaf rounds once where the plain version multiplies, then adds
+                tol, rule = 1e-5 * ref.abs() + 1e-6, "|d| <= 1e-5 |ref| + 1e-6"
+            else:
+                # a float32 sum rounded to bf16 may tie another way than __hfma2
+                tol, rule = 2.0 ** -6 * ref.abs() + 1e-3, "|d| <= 2^-6 |ref| + 1e-3"
+            rec = {"op": op, "dtype": str(dtype).split(".")[-1], "taps": taps, "chains": chains,
+                   "repeats": 2, "max_abs_err": d.max().item(), "tolerance": rule,
+                   "ok": bool((d <= tol).all())}
+            checks.append(rec)
+            worst = max(worst, rec["max_abs_err"])
+            if not rec["ok"]:
+                raise AssertionError(f"tap floor kernel disagrees with its plain version: {rec}")
+
+    tk.tap_floor.launches = 0
+    floor = tf.measure_floor(repeats=FLOOR_REPEATS, steps=FLOOR_STEPS, device="cuda")
+    launches = tk.tap_floor.launches
+    if launches == 0:
+        raise AssertionError("the floor harness did not launch the floor kernel")
+    n = tf.ROWS * tf.COLS
+    fmas = float(n) * FLOOR_REPEATS * 9
+    for r in floor["rates"]:
+        if r["op"] == "fma":
+            # bf16 at the CUDA cores' paired rate (2 FMAs per __hfma2, 134 TFLOP/s)
+            peak = PEAK_F32_CUDA_CORES * (2 if r["dtype"] == "bf16" else 1)
+            r["bound_ms"], r["bound_by"] = bound(n * (8 if r["dtype"] == "f32" else 4),
+                                                 2 * fmas, peak)
+    main = next(r for r in floor["rates"] if (r["op"], r["dtype"], r["chains"]) == ("fma", "f32", 4))
+    x = torch.ones((tf.ROWS, tf.COLS), device="cuda")
+    plain = cuda_ms(lambda: tk.tap_floor_reference(x, "fma", 9, FLOOR_REPEATS, 4), iters=1, warmup=0)
+    ceiling = tf.ceiling_from_rates(floor["tap_fma_g_s"], floor["swish_g_s"], floor["t_mm_ms"],
+                                    HBM_BYTES_S, chain_d0_ms, d0_ms)
+    emit({"phase": "tap_floor", "checks": checks, "repeats": FLOOR_REPEATS, **floor,
+          "harness_launches": launches, "plain_ms_f32_chains4": plain,
+          "ceiling": ceiling})
+    return worst, main, plain, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-dir", default=None,
@@ -437,17 +598,38 @@ def main() -> int:
     import efficientdet_tpu_torch.ops.head_kernel as hk
     import efficientdet_tpu_torch.ops.nms as tn
     import efficientdet_tpu_torch.ops.nms_kernel as nk
+    import efficientdet_tpu_torch.ops.mbconv_kernel as mk
+    import efficientdet_tpu_torch.ops.tap_floor_kernel as tk
+    from efficientdet_tpu_torch.experiments import packed_chain as pc
+    from efficientdet_tpu_torch.experiments import packed_mbconv as pm
+    from efficientdet_tpu_torch.experiments import tap_floor as tf
     from efficientdet_tpu_torch.ops import cuda_build
 
     t_start = time.perf_counter()
     card = phase_device(cuda_build)
     head_err, head_t = phase_head(hk)
     nms_t = phase_nms(nk)
-    launches = phase_pipeline(et, hk, nk, card, args.profile_dir)
+    launches, ms_per_call = phase_pipeline(et, hk, nk, card, args.profile_dir)
     phase_gpu_vs_cpu(et, tn)
+    mb_err, mb_blocks, harness = phase_mbconv(mk, pm)
+    chains, chain_launches = phase_chain(mk, pc)
+    floor_err, floor, floor_plain, floor_launches = phase_tap_floor(
+        tk, tf, chains[0]["baseline_ms"], ms_per_call)
 
     def total(key):
         return sum(t[key] for t in head_t)
+
+    def mbconv_row(layout, replaces, n):
+        def tot(key):
+            return sum(b[f"{layout}_{key}"] for b in mb_blocks)
+
+        by_bytes = sum(b[f"{layout}_bound_ms"] for b in mb_blocks if b[f"{layout}_bound_by"] == "bytes")
+        return {"name": f"fused_mbconv_{layout}", "route": "cuda",
+                "source": "efficientdet_tpu_torch/csrc/fused_mbconv.cu", "replaces": replaces,
+                "launches": n, "max_abs_err": mb_err[layout], "ms": tot("ms"),
+                "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+                "bound_by": "bytes" if 2 * by_bytes >= tot("bound_ms") else "operations",
+                "library_ms": None, "module_ms": sum(b["module_ms"] for b in mb_blocks)}
 
     emit({"kernels": [
         {"name": "head_pointwise", "route": "cuda",
@@ -462,8 +644,19 @@ def main() -> int:
          "launches": launches["nms_suppress"], "max_abs_err": 0.0,
          "ms": nms_t["ms"], "plain_ms": nms_t["plain_ms"], "bound_ms": nms_t["bound_ms"],
          "bound_by": nms_t["bound_by"], "library_ms": None},
-    ], "note": "ms, plain_ms, bound_ms, library_ms per main-path call at batch 128 "
-               "(head_pointwise: the class and the box launch together)",
+        mbconv_row("packed", "experiments/packed_mbconv_pallas.py:201", chain_launches),
+        mbconv_row("rp", "experiments/packed_mbconv_pallas.py:360", harness["rp"]),
+        mbconv_row("nhwc", "experiments/mbconv_pallas.py:52", harness["nhwc"]),
+        {"name": "tap_floor", "route": "cuda", "source": "efficientdet_tpu_torch/csrc/tap_floor.cu",
+         "replaces": "experiments/vpu_tap_floor.py:85", "launches": floor_launches,
+         "max_abs_err": floor_err, "ms": floor["kernel_ms"], "plain_ms": floor_plain,
+         "bound_ms": floor["bound_ms"], "bound_by": floor["bound_by"], "library_ms": None},
+    ], "note": "head_pointwise, nms_suppress: ms per main-path call at batch 128 (head: the "
+               "class and the box launch together), launches over 3 pipeline calls. "
+               "fused_mbconv_*: ms summed over the six BLOCKS shapes (D0 at batch 128, D4 at 16), "
+               "bf16, module_ms the port's unfused MBConvBlock there; launches: packed over the "
+               "chain phase, rp and nhwc over the block harness. tap_floor: f32, taps 9, "
+               "chains 4, repeats 512 over 4 Mi elements; launches over the floor harness.",
         "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,9 @@ import efficientdet_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "efficientdet_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "efficientdet_tpu")
+# the top-level experiments/ package is the JAX package's; the port's own
+# efficientdet_tpu_torch.experiments (relative imports too) is allowed
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "efficientdet_tpu", "experiments")
 
 
 def _modules():
@@ -53,6 +55,48 @@ def _imports(path):
 def test_no_forbidden_import_in_source(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_guard_walks_the_port_experiments(tmp_path):
+    mods = _modules()
+    for name in ("experiments.packed_mbconv", "experiments.mbconv", "experiments.packed_chain",
+                 "experiments.tap_floor", "ops.mbconv_kernel", "ops.tap_floor_kernel"):
+        assert f"efficientdet_tpu_torch.{name}" in mods
+    src = tmp_path / "probe.py"
+    src.write_text("from ..experiments import packed_mbconv\nimport experiments.packed_chain\n")
+    # the port's own experiments, imported relatively, are not the JAX package's
+    assert [m for m in _imports(str(src)) if m.split(".")[0] in FORBIDDEN] == [
+        "experiments.packed_chain"]
+
+
+def test_experiment_entry_points_raise_without_gpu(monkeypatch):
+    from efficientdet_tpu_torch.experiments import packed_chain, packed_mbconv, tap_floor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        packed_mbconv.torch_block(packed_mbconv.BLOCKS["d0s1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        packed_chain.torch_chain(packed_chain.TINY_CHAIN)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tap_floor.measure_rate("fma", 9, 1, 1)
+    with pytest.raises(RuntimeError, match="on the GPU"):
+        packed_mbconv.run_block(packed_mbconv.BLOCKS["d0s1"], device="cpu")
+
+
+def test_new_wrappers_reject_other_devices():
+    from efficientdet_tpu_torch.experiments.packed_mbconv import BLOCKS
+    from efficientdet_tpu_torch.ops.mbconv_kernel import fused_mbconv_nhwc, packed_mbconv
+    from efficientdet_tpu_torch.ops.tap_floor_kernel import tap_floor
+
+    meta = [torch.empty((1, 1), device="meta")] * 10
+    with pytest.raises(ValueError, match="unsupported device"):
+        packed_mbconv(torch.empty((1, 32, 4), device="meta"), meta, BLOCKS["d0s1"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_mbconv_nhwc(torch.empty((1, 2, 2, 32), device="meta"), meta, 3, False)
+    with pytest.raises(ValueError, match="lie on"):
+        packed_mbconv(torch.empty((1, 32, 4)), meta, BLOCKS["d0s1"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tap_floor(torch.empty((8, 128), device="meta"))
 
 
 def test_entry_point_raises_without_gpu(monkeypatch):
@@ -95,3 +139,36 @@ def test_kernels_on_the_gpu():
     cls = torch.randint(0, 3, (2, 300), generator=g).int().cuda()
     valid = (torch.rand(2, 300, generator=g) > 0.1).cuda()
     assert torch.equal(suppression_keep_mask(boxes, cls, valid), suppression_keep_mask_reference(boxes, cls, valid))
+
+
+@pytest.mark.cuda
+def test_mbconv_and_floor_kernels_on_the_gpu():
+    """On a GPU: the fused MBConv's three launchers and the floor kernel
+    against their plain versions, small shapes (float32, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs the kernels at full size")
+    from efficientdet_tpu_torch.experiments.packed_mbconv import BlockShape, pack_params, torch_block
+    from efficientdet_tpu_torch.ops import mbconv_kernel as mk
+    from efficientdet_tpu_torch.ops.tap_floor_kernel import tap_floor, tap_floor_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    for shape in (BlockShape("exp_skip", 2, 16, 8, 48, 8, 3, 2), BlockShape("noexp", 2, 16, 8, 8, 4, 3, 2),
+                  BlockShape("k5", 2, 8, 8, 24, 8, 5, 2), BlockShape("wide", 1, 40, 56, 336, 56, 5, 14)):
+        block, _ = torch_block(shape, torch.float32, device="cuda")
+        packed = pack_params(block)
+        x = torch.randn(shape.batch, shape.hw, shape.hw, shape.cin, generator=g).cuda()
+        want = mk.unpack_x(mk.packed_mbconv_reference(mk.pack_x(x), packed, shape), shape.hw)
+        tol = 1e-4 * max(want.abs().max().item(), 1.0)
+        got = mk.unpack_x(mk.packed_mbconv(mk.pack_x(x), packed, shape), shape.hw)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=tol)
+        mask = mk.rp_mask(shape.hw, torch.float32, "cuda")
+        got_rp = mk.packed_mbconv_rp(mk.pack_rp(x), mask, packed, shape)
+        assert (got_rp * (1 - mask)).abs().max().item() == 0.0
+        torch.testing.assert_close(mk.unpack_rp(got_rp, shape.hw), want, rtol=1e-4, atol=tol)
+        got_n = mk.fused_mbconv_nhwc(x.contiguous(), packed, shape.ksize, shape.has_skip)
+        torch.testing.assert_close(got_n, want, rtol=1e-4, atol=tol)
+    x = torch.rand(64, 1024, generator=g).cuda()
+    for op, chains in (("fma", 1), ("fma", 4), ("swish", 4)):
+        torch.testing.assert_close(tap_floor(x, op, 9, 3, chains), tap_floor_reference(x, op, 9, 3, chains),
+                                   rtol=1e-5, atol=1e-6)
