@@ -13,10 +13,20 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    build time (nvcc, one process per source, all at once);
 2. head_kernel: csrc/head_pointwise.cu against its plain version at the
    D0@512 batch-16 shapes (class A=9 x 90, box A=1 x 36), bf16 and f32;
-   then its time at batch 128 beside its bound and torch.addmm + amax;
+   then, in bf16, the bf16 kernels' edges: a row count that is not a
+   multiple of 128 (the tail tile, past the end of x), Cin 88 (not a
+   multiple of the K chunk) and Cin 384 (the D6/D7 width), both on the
+   streamed plan; then its time at batch 128 (the call's ms by CUDA events, the
+   kernel's device_ms by torch.profiler, the weights passed as the heads
+   pass them) beside its bound and torch.addmm + amax;
 3. nms_kernel: csrc/nms_suppress.cu against its plain version, exactly, on
-   the JAX package's parity data (B=4, K=1024, 16 classes, seed 0) and on
-   B=128 random candidates; its time at B=128;
+   the JAX package's parity data (B=4, K=1024, 16 classes, seed 0), on
+   B=128 random candidates, on 2-class dense data (K=1000), on candidates
+   shaped like the main path's (B=16, K=1024, 90 classes, several classes
+   per box), on K=40 (fewer than one mask word) and at the largest K the
+   shared memory holds (B=2), at IoU threshold 0.5, and the parity data
+   also at 0 and -0.1; the wrapper's shared-memory count against the
+   kernel's layout; its time at B=128 (ms and device_ms, as for the head);
 4. pipeline: D0@512 (90 classes, random weights from seed 0), BN folded,
    three bf16 calls at batch 16 through make_predict_fn with the launch
    counters reset just before; the detections checked; then img/s at
@@ -48,6 +58,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -63,6 +74,7 @@ from efficientdet_tpu_torch.experiments.timing import (
     PEAK_F32_CUDA_CORES,
     bound,
     cuda_ms,
+    kernel_ms,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -113,8 +125,8 @@ def phase_device(cuda_build):
 
 
 # the kernels whose ptxas report the device line carries, every instance
-_MAIN_PATH_KERNELS = ("head_pw_mma_kernel", "head_pw_kernel", "nms_mask_kernel",
-                      "nms_scan_kernel", "mbconv_pool_kernel", "mbconv_se_kernel",
+_MAIN_PATH_KERNELS = ("head_pw_resident_kernel", "head_pw_streamed_kernel", "head_pw_kernel",
+                      "nms_suppress_kernel", "mbconv_pool_kernel", "mbconv_se_kernel",
                       "mbconv_proj_kernel", "tap_floor_fma_f32", "tap_floor_fma_bf16",
                       "tap_floor_swish_f32")
 
@@ -182,9 +194,15 @@ def phase_head(hk):
     torch.backends.cuda.matmul.allow_tf32 = False
     checks = []
     worst_bf16 = 0.0
-    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+    rows = CHECK_BATCH * D0_PIXELS
+    cases = [(dtype, rows, 64, "D0 batch 16") for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(torch.bfloat16, rows - 77, 64, "tail tile"),
+              (torch.bfloat16, 3000, 88, "Cin 88"),
+              (torch.bfloat16, 3000, 384, "Cin 384")]
+    for dtype, rows, cin, label in cases:
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
         for a, out in ((9, 90), (1, 36)):
-            x, k, b = _head_inputs(CHECK_BATCH * D0_PIXELS, 64, a * out, dtype, seed=a)
+            x, k, b = _head_inputs(rows, cin, a * out, dtype, seed=a + cin)
             z, amax, m = hk.head_pointwise_anchor_major(x, k, b, a)
             zr, ar, _ = hk.head_pointwise_reference(x, k, b, a)
             torch.cuda.synchronize()
@@ -193,7 +211,7 @@ def phase_head(hk):
             dz = (zf - zrf).abs()
             da = (af - arf).abs()
             if dtype == torch.bfloat16:
-                # the two sum 64 products in another order before rounding:
+                # the two sum Cin products in another order before rounding:
                 # one bf16 ulp relative (2^-7 |ref|), plus 1e-4 for sums
                 # that cancel to near zero
                 tol_z, tol_a = 2.0 ** -7 * zrf.abs() + 1e-4, 2.0 ** -7 * arf.abs() + 1e-4
@@ -202,9 +220,11 @@ def phase_head(hk):
                 tol_z, tol_a = 1e-4 * zrf.abs() + 1e-5, 1e-4 * arf.abs() + 1e-5
                 rule = "|d| <= 1e-4 |ref| + 1e-5"
             ok = bool((dz <= tol_z).all() and (da <= tol_a).all())
-            rec = {"dtype": name, "A": a, "out": out, "M": m, "Mp": z.shape[1],
-                   "max_abs_dz": dz.max().item(), "max_abs_damax": da.max().item(),
-                   "tolerance": rule, "ok": ok}
+            rec = {"case": label, "dtype": name, "A": a, "out": out, "Cin": cin, "M": m,
+                   "Mp": z.shape[1], "max_abs_dz": dz.max().item(),
+                   "max_abs_damax": da.max().item(), "tolerance": rule, "ok": ok}
+            if dtype == torch.bfloat16:
+                rec["plan"] = hk.bf16_plan(cin, a, out)
             checks.append(rec)
             if dtype == torch.bfloat16:
                 worst_bf16 = max(worst_bf16, rec["max_abs_dz"], rec["max_abs_damax"])
@@ -218,13 +238,17 @@ def phase_head(hk):
         m, cin = x.shape
         mp = m + (-m) % hk.ROW_TILE
         kb = k.bfloat16()
-        ms = cuda_ms(lambda: hk.head_pointwise_anchor_major(x, k, b, a))
+        # as the heads pass it: the transposed view of a bf16 conv weight
+        kt = kb.t().contiguous().t()
+        ms = cuda_ms(lambda: hk.head_pointwise_anchor_major(x, kt, b, a))
+        device = kernel_ms(lambda: hk.head_pointwise_anchor_major(x, kt, b, a), calls=5)
         plain = cuda_ms(lambda: hk.head_pointwise_reference(x, k, b, a), iters=5, warmup=1)
         bb = b.bfloat16()
         library = cuda_ms(lambda: torch.addmm(bb, x, kb).view(m, a, out).amax(-1))
         nbytes = m * cin * 2 + cin * a * out * 2 + a * out * 4 + a * mp * out * 2 + a * mp * 2
         b_ms, b_by = bound(nbytes, 2.0 * m * cin * a * out, PEAK_BF16)
-        timing.append({"A": a, "out": out, "M": m, "ms": ms, "plain_ms": plain,
+        timing.append({"A": a, "out": out, "M": m, "ms": ms, "device_ms": sum(device.values()),
+                       "plain_ms": plain,
                        "library_ms": library, "bound_ms": b_ms, "bound_by": b_by,
                        "bytes": nbytes})
         del x
@@ -244,6 +268,26 @@ def _nms_inputs(rng, b, k, classes, span, wh_max):
     return boxes, cls, valid
 
 
+def _main_path_candidates(rng, b, k, classes=90, per_box=4, size=512):
+    """Candidates shaped like the main path's: boxes clipped to the image,
+    each box the candidate of ``per_box`` distinct classes (one anchor's
+    top classes), in an order unrelated to position (score order)."""
+    import torch
+
+    n_box = k // per_box
+    xy = rng.uniform(-20, size, (b, n_box, 2))
+    wh = rng.uniform(8, 220, (b, n_box, 2))
+    boxes = np.clip(np.concatenate([xy, xy + wh], -1), 0, size).astype(np.float32)
+    cls = np.stack([np.stack([rng.choice(classes, per_box, replace=False) for _ in range(n_box)])
+                    for _ in range(b)]).astype(np.int32)
+    order = np.stack([rng.permutation(k) for _ in range(b)])
+    boxes = np.take_along_axis(np.repeat(boxes, per_box, axis=1), order[..., None], axis=1)
+    cls = np.take_along_axis(cls.reshape(b, k), order, axis=1)
+    valid = rng.rand(b, k) > 0.05
+    return (torch.from_numpy(np.ascontiguousarray(boxes)).cuda(),
+            torch.from_numpy(np.ascontiguousarray(cls)).cuda(), torch.from_numpy(valid).cuda())
+
+
 def phase_nms(nk):
     import torch
 
@@ -251,20 +295,37 @@ def phase_nms(nk):
         "parity_data_B4_K1024": _nms_inputs(np.random.RandomState(0), 4, 1024, 16, 400, 150),
         "random_bench_K1024": _nms_inputs(np.random.RandomState(1), BENCH_BATCH, 1024, 16, 400, 150),
         "dense_B8_K1000": _nms_inputs(np.random.RandomState(2), 8, 1000, 2, 100, 80),
+        "main_path_B16_K1024_C90": _main_path_candidates(np.random.RandomState(4), 16, 1024),
+        "small_B8_K40": _nms_inputs(np.random.RandomState(5), 8, 40, 3, 60, 50),
+        f"limit_B2_K{nk.MAX_CANDIDATES}": _nms_inputs(np.random.RandomState(6), 2, nk.MAX_CANDIDATES,
+                                                      16, 400, 150),
     }
+    # the wrapper's shared-memory budget is the kernel's layout
+    from efficientdet_tpu_torch.ops import cuda_build
+
+    smem = cuda_build.load("nms_suppress").nms_suppress_smem_bytes
+    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int]
+    for k in (1, 40, 64, 1000, 1024, nk.MAX_CANDIDATES, nk.MAX_CANDIDATES + 1):
+        if smem(k) != nk.smem_bytes(k):
+            raise AssertionError(f"K={k}: the kernel takes {smem(k)} B, the wrapper counts {nk.smem_bytes(k)}")
+    # the threshold 0.5 everywhere; the parity data also at 0 (any overlap
+    # suppresses) and below 0 (pairs that do not intersect suppress too)
+    runs = [(name, inputs, 0.5) for name, inputs in cases.items()]
+    runs += [("parity_data_B4_K1024", cases["parity_data_B4_K1024"], t) for t in (0.0, -0.1)]
     checks = []
-    for name, (boxes, cls, valid) in cases.items():
-        got = nk.suppression_keep_mask(boxes, cls, valid, 0.5)
-        want = nk.suppression_keep_mask_reference(boxes, cls, valid, 0.5)
+    for name, (boxes, cls, valid), thr in runs:
+        got = nk.suppression_keep_mask(boxes, cls, valid, thr)
+        want = nk.suppression_keep_mask_reference(boxes, cls, valid, thr)
         torch.cuda.synchronize()
         diff = int((got != want).sum())
-        checks.append({"case": name, "kept": int(want.sum()), "valid": int(valid.sum()),
-                       "differ": diff})
+        checks.append({"case": name, "iou_threshold": thr, "kept": int(want.sum()),
+                       "valid": int(valid.sum()), "differ": diff})
         if diff:
             raise AssertionError(f"NMS kernel differs from its plain version: {checks[-1]}")
     boxes, cls, valid = cases["random_bench_K1024"]
     b, k = cls.shape
     ms = cuda_ms(lambda: nk.suppression_keep_mask(boxes, cls, valid, 0.5))
+    device = kernel_ms(lambda: nk.suppression_keep_mask(boxes, cls, valid, 0.5), calls=10)
     plain = cuda_ms(lambda: nk.suppression_keep_mask_reference(boxes, cls, valid, 0.5),
                     iters=3, warmup=1)
     nbytes = b * k * (16 + 4 + 1) + b * k
@@ -274,7 +335,8 @@ def phase_nms(nk):
     same_class_pairs = int((per_class * (per_class - 1) // 2).sum())
     ops = b * k * (k - 1) / 2 + same_class_pairs * NMS_OPS_PER_PAIR
     b_ms, b_by = bound(nbytes, ops, PEAK_F32_CUDA_CORES)
-    timing = {"B": b, "K": k, "ms": ms, "plain_ms": plain, "library_ms": None,
+    timing = {"B": b, "K": k, "ms": ms, "device_ms": sum(device.values()), "plain_ms": plain,
+              "library_ms": None,
               "bound_ms": b_ms, "bound_by": b_by, "same_class_pairs": same_class_pairs}
     emit({"phase": "nms_kernel", "checks": checks, "bench": timing})
     return timing
@@ -380,7 +442,16 @@ def _profile(predict, images, out_dir, ms_per_call, calls: int = 3):
             "launches": sum(r[1] for r in rows),
             "idle_share_profiled": max(0.0, 1.0 - busy / wall_ms),
             "idle_share_steady": max(0.0, 1.0 - busy / ms_per_call),
-            "top": [{"ms": r[0], "count": r[1], "name": r[2][:100]} for r in rows[:30]]}
+            "top": [{"ms": r[0], "count": r[1], "name": r[2][:100]} for r in rows[:30]],
+            # the port's own kernels, wherever they rank
+            "port_kernels": [{"ms": r[0], "count": r[1], "name": _demangle_key(r[2])}
+                             for r in rows if _demangle_key(r[2])]}
+
+
+def _demangle_key(key):
+    """``name<args>`` of a profiler kernel name if it is one of the port's kernels."""
+    m = re.search(r"\b(" + "|".join(_MAIN_PATH_KERNELS) + r")(<[^()]*>)?", key)
+    return m.group() if m else None
 
 
 def phase_gpu_vs_cpu(et, tn):
@@ -637,13 +708,14 @@ def main() -> int:
          "replaces": "efficientdet_tpu/ops/head_pallas.py:46",
          "launches": launches["head_pointwise"], "max_abs_err": head_err,
          "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-         "bound_by": head_t[0]["bound_by"], "library_ms": total("library_ms")},
+         "bound_by": head_t[0]["bound_by"], "library_ms": total("library_ms"),
+         "device_ms": total("device_ms")},
         {"name": "nms_suppress", "route": "cuda",
          "source": "efficientdet_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "efficientdet_tpu/ops/nms_pallas.py:34",
          "launches": launches["nms_suppress"], "max_abs_err": 0.0,
          "ms": nms_t["ms"], "plain_ms": nms_t["plain_ms"], "bound_ms": nms_t["bound_ms"],
-         "bound_by": nms_t["bound_by"], "library_ms": None},
+         "bound_by": nms_t["bound_by"], "library_ms": None, "device_ms": nms_t["device_ms"]},
         mbconv_row("packed", "experiments/packed_mbconv_pallas.py:201", chain_launches),
         mbconv_row("rp", "experiments/packed_mbconv_pallas.py:360", harness["rp"]),
         mbconv_row("nhwc", "experiments/mbconv_pallas.py:52", harness["nhwc"]),
@@ -652,7 +724,8 @@ def main() -> int:
          "max_abs_err": floor_err, "ms": floor["kernel_ms"], "plain_ms": floor_plain,
          "bound_ms": floor["bound_ms"], "bound_by": floor["bound_by"], "library_ms": None},
     ], "note": "head_pointwise, nms_suppress: ms per main-path call at batch 128 (head: the "
-               "class and the box launch together), launches over 3 pipeline calls. "
+               "class and the box launch together), the wrapper's call by CUDA events; "
+               "device_ms the kernels alone, by torch.profiler; launches over 3 pipeline calls. "
                "fused_mbconv_*: ms summed over the six BLOCKS shapes (D0 at batch 128, D4 at 16), "
                "bf16, module_ms the port's unfused MBConvBlock there; launches: packed over the "
                "chain phase, rp and nhwc over the block harness. tap_floor: f32, taps 9, "

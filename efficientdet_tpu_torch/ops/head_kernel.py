@@ -14,6 +14,11 @@ the bias only and must never be selected. Row ``m = b*H*W + p`` is pixel
 
 :func:`head_pointwise_anchor_major` launches ``csrc/head_pointwise.cu`` for a
 CUDA tensor and takes :func:`head_pointwise_reference` only for a CPU one.
+In bf16 the launcher picks one of two plans from the widths
+(:func:`bf16_plan`): ``"resident"`` (Cin <= 64) keeps every anchor's
+weights in shared memory (D0's class and box launches), ``"streamed"``
+stages one anchor's weights per K chunk (wider inputs, up to the D6/D7
+width 384).
 """
 
 from __future__ import annotations
@@ -98,3 +103,17 @@ def head_pointwise_anchor_major(
 
 
 head_pointwise_anchor_major.launches = 0
+
+
+def bf16_plan(cin: int, num_anchors: int, out_per: int) -> str:
+    """The plan the bf16 launcher takes for these widths on the current GPU."""
+    from . import cuda_build
+
+    lib = cuda_build.load("head_pointwise")
+    fn = lib.head_pointwise_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    plan = fn(cin, num_anchors, out_per)
+    if plan < 0:
+        cuda_build.check(lib, "head_pointwise", -plan)
+    return {1: "resident", 2: "streamed"}.get(plan, "none")

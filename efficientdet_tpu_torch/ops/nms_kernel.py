@@ -6,9 +6,10 @@ candidates ``boxes (B, K, 4)`` float32 xyxy, ``classes (B, K)`` int32 and
 ``(B, K)`` bool: the fixpoint of ``keep[i] = valid[i] and not any_{j<i}
 keep[j] and IoU(j, i) > t and class[j] == class[i]``.
 
-:func:`suppression_keep_mask` launches ``csrc/nms_suppress.cu`` (a bit-packed
-mask, then a greedy scan) for CUDA tensors and takes
-:func:`suppression_keep_mask_reference` only for CPU ones.
+:func:`suppression_keep_mask` launches ``csrc/nms_suppress.cu`` (one block
+per image: a bit-packed mask built in shared memory, then a word-blocked
+greedy scan) for CUDA tensors and takes :func:`suppression_keep_mask_reference`
+only for CPU ones.
 """
 
 from __future__ import annotations
@@ -19,9 +20,26 @@ import torch
 
 from ..anchors import iou_matrix
 
-# The scan holds an image's bit-packed mask (K * ceil(K/64) words) and its
-# valid flags in shared memory: at most 227 KB a block on Hopper, K <= 1536.
-_SCAN_SMEM_MAX = 232448
+# A block holds one image in shared memory, at most 227 KB on Hopper.
+_SMEM_MAX = 232448
+
+
+def smem_bytes(k: int) -> int:
+    """Shared memory the kernel needs for one image of ``k`` candidates.
+
+    16 B of box a candidate, 4 of class (padded to whole 64-candidate
+    words), the bit-packed mask of K rows of ``W | 1`` words (W = ceil(K/64),
+    an odd row stride against bank conflicts), the transposed diagonal word
+    blocks (8 B a candidate, padded), one valid word per 64, 128 class-bucket
+    words per 64 and 4 B of area a candidate: the layout of ``smem_layout``
+    in ``csrc/nms_suppress.cu``.
+    """
+    w = -(-k // 64)
+    return k * 16 + w * 64 * 4 + k * (w | 1) * 8 + w * 64 * 8 + w * 8 + w * 128 * 8 + k * 4
+
+
+# the largest K that fits: 1152 (EvalConfig.pre_nms_top_k is 1024)
+MAX_CANDIDATES = max(k for k in range(1, 2048) if smem_bytes(k) <= _SMEM_MAX)
 
 
 def suppression_keep_mask_reference(
@@ -71,22 +89,23 @@ def suppression_keep_mask(
         raise ValueError("boxes, classes and valid must be contiguous")
     if classes.device != boxes.device or valid.device != boxes.device:
         raise ValueError("boxes, classes and valid must be on one device")
-    words = -(-k // 64)
-    if words > 32 or k * words * 8 + k > _SCAN_SMEM_MAX:
-        raise ValueError(f"K={k} candidates need more shared memory than the scan has")
+    if k > MAX_CANDIDATES:
+        raise ValueError(
+            f"K={k} candidates need {smem_bytes(k)} B of shared memory; "
+            f"at most {MAX_CANDIDATES} fit in {_SMEM_MAX}"
+        )
     lib = cuda_build.load("nms_suppress")
-    mask = torch.empty((b, k, words), dtype=torch.int64, device=boxes.device)
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
 
     fn = lib.nms_suppress_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_void_p]
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = fn(
             boxes.data_ptr(), classes.data_ptr(), valid.data_ptr(),
-            mask.data_ptr(), keep.data_ptr(), b, k, float(iou_threshold), stream,
+            keep.data_ptr(), b, k, float(iou_threshold), stream,
         )
     cuda_build.check(lib, "nms_suppress", err)
     suppression_keep_mask.launches += 1

@@ -18,7 +18,10 @@ from efficientdet_tpu.configs import EvalConfig as JEvalConfig
 from efficientdet_tpu.ops.nms_pallas import suppression_keep_mask as j_keep_mask
 import efficientdet_tpu_torch.ops.nms as tn
 from efficientdet_tpu_torch.configs import EvalConfig
+from efficientdet_tpu_torch.anchors import iou_matrix as t_iou
 from efficientdet_tpu_torch.ops.nms_kernel import (
+    MAX_CANDIDATES,
+    smem_bytes,
     suppression_keep_mask,
     suppression_keep_mask_reference,
 )
@@ -77,6 +80,114 @@ def test_suppression_bench_data():
         torch.from_numpy(boxes), torch.from_numpy(cls), torch.from_numpy(valid)
     ).numpy()
     np.testing.assert_array_equal(got, _xla_fixpoint(boxes, cls, valid, 0.5))
+
+
+def _bucket(c):
+    """The kernel's class bucket of class ``c``: the top 7 bits of
+    ``c * 2654435761`` taken modulo 2**32."""
+    return ((int(c) * 2654435761) & 0xFFFFFFFF) >> 25
+
+
+def _packed_mask(boxes, cls, thr, rng):
+    """One image's suppression matrix bit-packed as the CUDA kernel builds it:
+    (K, W) 64-bit words, bit c of word w in row j meaning "j suppresses
+    64w + c". A row's candidates in word w are its class bucket's bits there,
+    less the other classes of the bucket; only the words at or right of j's
+    own word are built, and the others hold random bits here, which the scan
+    must never read."""
+    k = boxes.shape[0]
+    w = -(-k // 64)
+    b = torch.from_numpy(boxes)
+    above = (t_iou(b, b) > np.float32(thr)).numpy()
+    buckets = [[0] * 128 for _ in range(w)]
+    for i in range(k):
+        buckets[i // 64][_bucket(cls[i])] |= 1 << (i % 64)
+    mask = [[int(v) for v in row] for row in rng.randint(0, 2 ** 63, (k, w), dtype=np.int64)]
+    for j in range(k):
+        for ww in range(j // 64, w):
+            m = buckets[ww][_bucket(cls[j])]
+            if ww == j // 64:
+                m &= ~((2 << (j % 64)) - 1)  # only i > j
+            bits = 0
+            while m:
+                c = (m & -m).bit_length() - 1
+                m &= m - 1
+                i = 64 * ww + c
+                if cls[i] == cls[j] and above[j, i]:
+                    bits |= 1 << c
+            mask[j][ww] = bits
+    return mask
+
+
+def _word_scan(mask, valid):
+    """The kernel's word-blocked greedy scan, one image, in Python integers.
+
+    Lane l of the scan warp holds word l of the removed set. For each word w
+    in order: the diagonal block transposed (col[l] bit c: 64w + c
+    suppresses 64w + l); the word's kept set iterated from its available
+    candidates, kept = avail & ~{l : col[l] & kept}, until a step changes
+    nothing; then every lane l > w ORs in mask[i][l] of each kept i of word
+    w (the fan-in)."""
+    k, n_words = len(mask), len(mask[0])
+    vbits = [sum(int(v) << c for c, v in enumerate(valid[64 * w:64 * w + 64])) for w in range(n_words)]
+    removed = [0] * n_words
+    keep = np.zeros(k, bool)
+    for w in range(n_words):
+        base, n = 64 * w, min(64, k - 64 * w)
+        col = [sum(((mask[base + c][w] >> lane) & 1) << c for c in range(n)) for lane in range(64)]
+        avail = vbits[w] & ~removed[w]
+        kept = avail
+        while True:
+            hit = sum(1 << lane for lane in range(64) if col[lane] & kept)
+            nxt = avail & ~hit
+            if nxt == kept:
+                break
+            kept = nxt
+        for lane in range(w + 1, n_words):
+            m, acc = kept, 0
+            while m:
+                c = (m & -m).bit_length() - 1
+                m &= m - 1
+                acc |= mask[base + c][lane]
+            removed[lane] |= acc
+        keep[base:base + n] = [(kept >> c) & 1 for c in range(n)]
+    return keep
+
+
+@pytest.mark.parametrize("seed,k,classes,thr,spread,all_invalid", [
+    (0, 256, 4, 0.5, 200.0, False),   # the parity seeds above
+    (1, 200, 3, 0.5, 200.0, False),
+    (2, 300, 1, 0.3, 200.0, False),
+    (3, 129, 16, 0.5, 200.0, False),
+    (4, 512, 2, 0.7, 200.0, False),
+    (5, 1000, 16, 0.5, 400.0, False),  # K not a multiple of 64
+    (6, 40, 3, 0.5, 60.0, False),      # fewer than one word
+    (7, 300, 4, 0.5, 200.0, True),     # nothing valid
+    (8, 512, 2, 0.5, 60.0, False),     # two classes, dense
+    (9, 600, 300, 0.5, 40.0, False),   # more classes than buckets: a bucket's others dropped
+])
+def test_word_blocked_scan_matches_the_fixpoint(seed, k, classes, thr, spread, all_invalid):
+    boxes, cls, valid = _candidates(seed, 2, k, classes, spread)
+    if all_invalid:
+        valid[:] = False
+    rng = np.random.RandomState(seed)
+    got = np.stack([_word_scan(_packed_mask(boxes[i], cls[i], thr, rng), valid[i]) for i in range(2)])
+    want = suppression_keep_mask_reference(
+        torch.from_numpy(boxes), torch.from_numpy(cls), torch.from_numpy(valid), thr
+    ).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _xla_fixpoint(boxes, cls, valid, thr))
+    if all_invalid:
+        assert not got.any()
+    else:
+        assert 0 < got.sum() < valid.sum()
+
+
+def test_suppression_kernel_fits_the_default_candidates():
+    # one image per block in at most 232,448 B of shared memory
+    assert smem_bytes(1024) == 188_544
+    assert EvalConfig().pre_nms_top_k <= MAX_CANDIDATES == 1152
+    assert smem_bytes(MAX_CANDIDATES) <= 232_448 < smem_bytes(MAX_CANDIDATES + 1)
 
 
 HWS = (256, 64, 16, 4, 1)  # pixels per level at 128 px
