@@ -36,8 +36,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    outputs, then detections;
 6. mbconv_kernels: csrc/fused_mbconv.cu's three launchers (packed, row-
    padded, NHWC) against their plain versions in f32 and bf16, on the JAX
-   tests' tiny cases and the D0 blocks at batch 2, the row-padded output's
-   gap lanes exactly 0; then the per-block harness at the recorded D0
+   tests' tiny cases, the kernel's edges (MBCONV_EDGES) and the D0 blocks at
+   batch 2, the row-padded output's gap lanes exactly 0 (x's own values
+   under a skip) and two runs equal bit for bit; the wrapper's shared-memory
+   count against the kernel's plan; then the per-block harness at the recorded D0
    (batch 128) and D4 (batch 16) shapes: each kernel against its plain
    version there (bf16, the same tolerance, rp gaps exactly 0), then its ms
    beside its bound, its plain version's and the port's unfused
@@ -90,6 +92,19 @@ D0_PIXELS = 64 * 64 + 32 * 32 + 16 * 16 + 8 * 8 + 4 * 4  # pixel rows per image 
 MBCONV_TINY = [("tiny_exp_skip", 2, 16, 8, 48, 8, 3, 2),
                       ("tiny_noexp", 2, 16, 8, 8, 4, 3, 2),
                       ("tiny_k5", 2, 8, 8, 24, 8, 5, 2)]
+# the kernel's edges: sides that are no multiple of the 16 x 32 (bf16) or
+# 8 x 32 (f32) tile, a single partial tile, odd sides (rows that start on odd
+# pixels), a side one past a tile edge (33; the row-padded 29 + 4 too),
+# Cin 24/40/56 (K padded to 16), Ce 24 without expand (a partial chunk),
+# Cout 16/40/56, k3 and k5, with and without skip, batch 1; odd widths (the
+# weights' rows are not aligned words: they are staged without cp.async)
+MBCONV_EDGES = [("hw20_cin24_skip", 1, 20, 24, 144, 24, 3, 4),
+                ("hw72_cin40_k5_skip", 1, 72, 40, 240, 40, 5, 6),
+                ("hw8_ce24_noexpand_cout16", 1, 8, 24, 24, 16, 3, 6),
+                ("hw30_cin56_k5_skip", 2, 30, 56, 336, 56, 5, 14),
+                ("hw33_cout40_noskip", 1, 33, 24, 144, 40, 3, 4),
+                ("hw29_k5_skip", 1, 29, 16, 96, 16, 5, 4),
+                ("hw12_odd_widths", 1, 12, 7, 21, 9, 3, 2)]
 MBCONV_STEPS = 10  # timed calls per kernel and block (the plain version: a fifth)
 CHAIN_STEPS = 10
 FLOOR_REPEATS = 512
@@ -126,8 +141,8 @@ def phase_device(cuda_build):
 
 # the kernels whose ptxas report the device line carries, every instance
 _MAIN_PATH_KERNELS = ("head_pw_resident_kernel", "head_pw_streamed_kernel", "head_pw_kernel",
-                      "nms_suppress_kernel", "mbconv_pool_kernel", "mbconv_se_kernel",
-                      "mbconv_proj_kernel", "tap_floor_fma_f32", "tap_floor_fma_bf16",
+                      "nms_suppress_kernel", "mbconv_pass_kernel", "mbconv_se_kernel",
+                      "mbconv_rp_ring_kernel", "tap_floor_fma_f32", "tap_floor_fma_bf16",
                       "tap_floor_swish_f32")
 
 
@@ -535,7 +550,27 @@ def phase_mbconv(mk, pm):
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [pm.BlockShape(*c) for c in MBCONV_TINY] + [pm.BLOCKS[n]._replace(batch=2) for n in ("d0s1", "d0s2b1", "d0s3b1")]
+    cases = ([pm.BlockShape(*c) for c in MBCONV_TINY + MBCONV_EDGES]
+             + [pm.BLOCKS[n]._replace(batch=2) for n in ("d0s1", "d0s2b1", "d0s3b1")])
+    # the wrapper's shared-memory count is the kernel's plan
+    from efficientdet_tpu_torch.ops import cuda_build
+
+    smem = cuda_build.load("fused_mbconv").fused_mbconv_smem_bytes
+    smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int] * 7
+    tiles = cuda_build.load("fused_mbconv").fused_mbconv_tiles
+    tiles.restype, tiles.argtypes = ctypes.c_int, [ctypes.c_int] * 3
+    for shape in cases + list(pm.BLOCKS.values()):
+        for dtype in (torch.float32, torch.bfloat16):
+            if tiles(shape.hw, shape.hw, int(dtype == torch.bfloat16)) != mk.tiles_of(
+                    shape.hw, shape.hw, dtype):
+                raise AssertionError(f"{shape.name} {dtype}: the wrapper's tile count is not the kernel's")
+            for project in (False, True):
+                args = (shape.cin, shape.cexp, shape.cout, shape.ksize, shape.has_expand)
+                got = smem(*(int(a) for a in args), int(dtype == torch.bfloat16), int(project))
+                want = mk.smem_bytes(*args, dtype, project)
+                if got != want or want > mk.SMEM_MAX:
+                    raise AssertionError(f"{shape.name} {dtype} project={project}: the kernel takes "
+                                         f"{got} B of shared memory, the wrapper counts {want}")
     checks, worst = [], {"packed": 0.0, "rp": 0.0, "nhwc": 0.0}
     for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for shape in cases:
@@ -546,6 +581,9 @@ def phase_mbconv(mk, pm):
                             device="cuda").to(dtype)
             mask = mk.rp_mask(shape.hw, dtype, "cuda")
             xp, xrp = mk.pack_x(x), mk.pack_rp(x)
+            if shape.has_skip:  # the gap lanes must leave as x's own: give them values
+                xrp = xrp + (1 - mask) * 0.25
+            twice = mk.packed_mbconv_rp(xrp, mask, packed, shape)
             pairs = {
                 "packed": (mk.packed_mbconv(xp, packed, shape),
                            mk.packed_mbconv_reference(xp, packed, shape)),
@@ -555,7 +593,13 @@ def phase_mbconv(mk, pm):
                          mk.fused_mbconv_nhwc_reference(x, packed, shape.ksize, shape.has_skip)),
             }
             torch.cuda.synchronize()
-            gap = (pairs["rp"][0].float() * (1 - mask.float())).abs().max().item()
+            # gap lanes: exactly 0, or exactly x's own under a skip; a second run
+            # gives the same bits
+            out_rp = pairs["rp"][0]
+            x_gap = xrp * (1 - mask) if shape.has_skip else torch.zeros_like(out_rp)
+            gap = ((out_rp.float() - x_gap.float()) * (1 - mask.float())).abs().max().item()
+            if not torch.equal(out_rp, twice):
+                raise AssertionError(f"{shape.name} {dname}: two runs of the rp kernel differ")
             rec = {"dtype": dname, "shape": shape.name, "batch": shape.batch, "rp_gap_max": gap}
             for name, (got, ref) in pairs.items():
                 rec[name] = pm.check_kernel(got, ref, dtype)
@@ -700,7 +744,8 @@ def main() -> int:
                 "launches": n, "max_abs_err": mb_err[layout], "ms": tot("ms"),
                 "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
                 "bound_by": "bytes" if 2 * by_bytes >= tot("bound_ms") else "operations",
-                "library_ms": None, "module_ms": sum(b["module_ms"] for b in mb_blocks)}
+                "library_ms": None, "device_ms": tot("device_ms"),
+                "module_ms": sum(b["module_ms"] for b in mb_blocks)}
 
     emit({"kernels": [
         {"name": "head_pointwise", "route": "cuda",
@@ -727,7 +772,8 @@ def main() -> int:
                "class and the box launch together), the wrapper's call by CUDA events; "
                "device_ms the kernels alone, by torch.profiler; launches over 3 pipeline calls. "
                "fused_mbconv_*: ms summed over the six BLOCKS shapes (D0 at batch 128, D4 at 16), "
-               "bf16, module_ms the port's unfused MBConvBlock there; launches: packed over the "
+               "bf16, device_ms their launches alone (torch.profiler), module_ms the port's unfused "
+               "MBConvBlock there; launches: packed over the "
                "chain phase, rp and nhwc over the block harness. tap_floor: f32, taps 9, "
                "chains 4, repeats 512 over 4 Mi elements; launches over the floor harness.",
         "elapsed_s": time.perf_counter() - t_start})

@@ -1,17 +1,23 @@
-"""Same-card A/B of two checkouts on the main path's kernels and img/s.
+"""Same-card A/B of two checkouts on the port's kernels and the main path's img/s.
 
     python3 -m efficientdet_tpu_torch.experiments.kernel_ab --base DIR [--pairs 5] [--out FILE]
 
 DIR is another checkout of the repository, for example its parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
-Each run is a fresh process in one tree that builds that tree's head and
-NMS kernels and measures them with the harness below, the same for both
-trees: the head kernel's class (A 9, out 90) and box (A 1, out 36) launches
+Each run is a fresh process in one tree that builds that tree's head, NMS
+and fused-MBConv kernels and measures them with the harness below, the same
+for both trees: the head kernel's class (A 9, out 90) and box (A 1, out 36) launches
 on D0@512 batch-128 rows in bf16, the weights passed as the heads pass them;
 the NMS kernel on random B 128, K 1024, 16-class candidates (chip_smoke.py's
 ``random_bench_K1024``); each as the wrapper call's ms (CUDA events over 20
-calls) and the kernel's device ms (torch.profiler); then the D0@512 bf16
-pipeline's img/s at batch 128 (10 calls after 2). The runs take turns on
+calls) and the kernel's device ms (torch.profiler); the fused MBConv kernel at the six
+``BLOCKS`` of experiments/packed_mbconv.py in its three layouts (``mb_<block>_
+<layout>_ms`` the call over 10 calls, ``_device_ms`` its launches alone, their
+sums over the blocks as ``mb_sum_*``), the port's unfused block there
+(``mb_<block>_module_ms``), and every route of the D0 and D4 stages-1-3
+chains against the block chain (``chain_<name>_baseline_ms``,
+``chain_<name>_route<i>_ms``, experiments/packed_chain.run_chain, 10 steps);
+then the D0@512 bf16 pipeline's img/s at batch 128 (10 calls after 2). The runs take turns on
 one GPU: base, this, this, base, base, this, ... (``--pairs`` runs of each
 tree). Printed, and written to ``--out`` if given: every run's numbers, and per tree
 their median and spread ((max - min) / median), with the card's name and
@@ -37,10 +43,13 @@ import torch
 sys.path.insert(0, ".")
 import efficientdet_tpu_torch as et
 import efficientdet_tpu_torch.ops.head_kernel as hk
+import efficientdet_tpu_torch.ops.mbconv_kernel as mk
 import efficientdet_tpu_torch.ops.nms_kernel as nk
+from efficientdet_tpu_torch.experiments import packed_chain as pc
+from efficientdet_tpu_torch.experiments import packed_mbconv as pm
 from efficientdet_tpu_torch.ops import cuda_build
 
-cuda_build.build(["head_pointwise", "nms_suppress"])
+cuda_build.build(["head_pointwise", "nms_suppress", "fused_mbconv"])
 
 
 def event_ms(fn, iters=20, warmup=3):
@@ -97,6 +106,35 @@ call = lambda: nk.suppression_keep_mask(boxes, cls, valid, 0.5)
 rec["nms_ms"] = event_ms(call)
 rec["nms_device_ms"] = device_ms(call, "nms_")
 
+del boxes, cls, valid
+with torch.inference_mode():
+    for name, shape in pm.BLOCKS.items():
+        block, _ = pm.torch_block(shape, torch.bfloat16, device="cuda")
+        packed = pm.pack_params(block)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn((shape.batch, shape.hw, shape.hw, shape.cin), generator=gen,
+                        device="cuda").bfloat16()
+        xp, xrp, mask = mk.pack_x(x), mk.pack_rp(x), mk.rp_mask(shape.hw, torch.bfloat16, "cuda")
+        xnchw = xp.view(shape.batch, shape.cin, shape.hw, shape.hw)
+        calls = {"packed": lambda: mk.packed_mbconv(xp, packed, shape),
+                 "rp": lambda: mk.packed_mbconv_rp(xrp, mask, packed, shape),
+                 "nhwc": lambda: mk.fused_mbconv_nhwc(x, packed, shape.ksize, shape.has_skip)}
+        for layout, call in calls.items():
+            rec[f"mb_{name}_{layout}_ms"] = event_ms(call, iters=10)
+            rec[f"mb_{name}_{layout}_device_ms"] = device_ms(call, "mbconv_", calls=3)
+        rec[f"mb_{name}_module_ms"] = event_ms(lambda: block(xnchw), iters=10)
+        del x, xp, xrp, xnchw, block, packed
+        torch.cuda.empty_cache()
+for key in ("packed_ms", "rp_ms", "nhwc_ms", "packed_device_ms", "rp_device_ms", "nhwc_device_ms",
+            "module_ms"):
+    rec["mb_sum_" + key] = sum(rec[f"mb_{name}_{key}"] for name in pm.BLOCKS)
+for spec in (pc.D0_CHAIN, pc.D4_CHAIN):
+    chain = pc.run_chain(spec, steps=10)
+    rec[f"chain_{spec.name}_baseline_ms"] = chain["baseline_ms"]
+    for i, route in enumerate(chain["routes"]):
+        rec[f"chain_{spec.name}_route{i}_ms"] = route["ms"]
+    torch.cuda.empty_cache()
+
 model, cfg = et.build_efficientdet(0, num_classes=90, dtype=torch.bfloat16, seed=0)
 predict = et.make_predict_fn(et.fuse_for_inference(model))
 images = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (128, 512, 512, 3)).astype(np.uint8)).cuda()
@@ -113,9 +151,6 @@ rec["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--f
 print(json.dumps(rec), flush=True)
 """
 
-METRICS = ("head_class_ms", "head_class_device_ms", "head_box_ms", "head_box_device_ms",
-           "nms_ms", "nms_device_ms", "pipeline_img_s")
-
 
 def run_tree(root: str) -> dict:
     """One run of the harness in ``root``: the metrics and the card line."""
@@ -127,7 +162,7 @@ def run_tree(root: str) -> dict:
 
 def summarize(runs):
     out = {}
-    for key in METRICS:
+    for key in (k for k, v in runs[0].items() if isinstance(v, float)):
         vals = [r[key] for r in runs]
         med = statistics.median(vals)
         out[key] = {"runs": vals, "median": med, "spread": (max(vals) - min(vals)) / med}

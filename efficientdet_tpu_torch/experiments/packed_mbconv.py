@@ -41,7 +41,14 @@ from ..ops.mbconv_kernel import (
     unpack_x,
 )
 from ..utils.convert import load_flax_variables
-from .timing import HBM_BYTES_S, PEAK_BF16, PEAK_F32_CUDA_CORES, cuda_ms, kernel_ms
+from .timing import (
+    HBM_BYTES_S,
+    PEAK_BF16,
+    PEAK_F32_CUDA_CORES,
+    PEAK_SFU,
+    cuda_ms,
+    kernel_ms,
+)
 
 
 class BlockShape(NamedTuple):
@@ -163,7 +170,9 @@ def block_bound(shape: BlockShape, layout: str) -> Tuple[float, str]:
     """Least time of one fused block at ``shape``, bf16, as (ms, bound by):
     bytes (x read and y written once, the row-padded layout's gap lanes and
     mask included) or operations (taps on the CUDA cores, the 1x1 products
-    on the tensor cores)."""
+    on the tensor cores, and one special-function instruction per swish: the
+    depthwise's per expanded channel and pixel, and the expand's where there
+    is one)."""
     px = shape.batch * shape.hw ** 2
     side = rp_dims(shape.hw)
     lanes = shape.batch * side ** 2 if layout == "rp" else px
@@ -172,7 +181,8 @@ def block_bound(shape: BlockShape, layout: str) -> Tuple[float, str]:
     products = 2.0 * ((shape.cin * shape.cexp if shape.has_expand else 0)
                       + shape.cexp * shape.cout) * px
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = (taps / PEAK_F32_CUDA_CORES + products / PEAK_BF16) * 1e3
+    swishes = shape.cexp * px * (2.0 if shape.has_expand else 1.0)
+    t_ops = (taps / PEAK_F32_CUDA_CORES + products / PEAK_BF16 + swishes / PEAK_SFU) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -264,12 +274,17 @@ def run_block(shape: BlockShape, steps: int = 20, device=None) -> Dict:
             "nhwc_plain_ms": cuda_ms(lambda: fused_mbconv_nhwc_reference(
                 x, packed, shape.ksize, shape.has_skip), plain_steps, warmup=1),
             "packed_kernels_ms": kernel_ms(lambda: packed_mbconv(xp, packed, shape)),
+            "rp_kernels_ms": kernel_ms(lambda: packed_mbconv_rp(xrp, mask, packed, shape)),
+            "nhwc_kernels_ms": kernel_ms(lambda: fused_mbconv_nhwc(x, packed, shape.ksize,
+                                                                   shape.has_skip)),
             "pack_ms": cuda_ms(lambda: pack_x(x), steps),
             "unpack_ms": cuda_ms(lambda: unpack_x(out_p, shape.hw).contiguous(), steps),
         }
     bounds = {}
     for layout in ("packed", "rp", "nhwc"):
         bounds[f"{layout}_bound_ms"], bounds[f"{layout}_bound_by"] = block_bound(shape, layout)
+    for layout in ("packed", "rp", "nhwc"):  # the launches alone, without the wrapper
+        ms[f"{layout}_device_ms"] = sum(ms[f"{layout}_kernels_ms"].values())
     return {"block": shape.name, "batch": shape.batch, **ms, **bounds,
             "speedup_packed": ms["module_ms"] / ms["packed_ms"],
             "vs_plain": vs_plain, "rp_gap_max": rp_gap,

@@ -12,6 +12,9 @@ import torch
 HBM_BYTES_S = 3.35e12
 PEAK_BF16 = 989e12            # tensor cores
 PEAK_F32_CUDA_CORES = 67e12
+# special-function unit (exp, tanh, reciprocal): 16 results a clock on each of
+# the 132 SMs at the 1.98 GHz boost clock
+PEAK_SFU = 16 * 132 * 1.98e9
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float) -> Tuple[float, str]:

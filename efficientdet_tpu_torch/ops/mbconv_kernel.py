@@ -29,7 +29,14 @@ the depthwise conv belongs to the expanded activation.
 
 The wrappers launch ``csrc/fused_mbconv.cu`` for CUDA tensors (one count on
 each wrapper's ``launches`` per call; a call is three launches: the SE pool,
-the SE scale, the project) and take the plain version only for CPU tensors.
+the SE scale, the project; the row-padded layout adds a fourth that writes
+its gap lanes) and take the plain version only for CPU tensors.
+
+The kernel's plan is mirrored here in plain Python, where the CPU tests can
+reach it: its tile and chunk (``tile_config``), its shared memory
+(``smem_bytes``), its walk of the row-padded layout (``rp_tile_lanes``,
+``rp_ring_lanes``), the zero padding of its products' operands
+(``zero_padded_k``) and its bf16 swish (``tanh_swish``).
 """
 
 from __future__ import annotations
@@ -192,6 +199,120 @@ def fused_mbconv_nhwc_reference(x: torch.Tensor, packed: Packed, ksize: int,
     return y.to(x.dtype)
 
 
+# ------------------------------------------------- the kernel's plan, mirrored
+
+SMEM_MAX = 232448   # dynamic shared memory a block may ask for on an H100
+TILE_W = 32         # tile width in pixels
+HALO_COLS = 36      # pitch of a halo row: TILE_W + 2 * 2, for k3 too
+MAX_COUT = 64       # eight column tiles of 8 in the project
+MAX_CIN_BF16 = 64   # four K steps of 16 in the bf16 expand
+
+
+def tile_config(dtype) -> Tuple[int, int]:
+    """(tile rows, channels a chunk) of the kernel for ``dtype``; a block has
+    32 threads a tile row."""
+    return (16, 32) if dtype == torch.bfloat16 else (8, 16)
+
+
+def tiles_of(h: int, w: int, dtype) -> int:
+    """Spatial tiles of an h x w grid of real pixels (the row-padded layout
+    walks its real lanes, so its count is the packed layout's)."""
+    th, _ = tile_config(dtype)
+    return -(-w // TILE_W) * -(-h // th)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _odd8(n: int) -> int:
+    """The least odd multiple of 8 that holds n (a shared-memory row pitch)."""
+    return 8 * (-(-n // 8) | 1)
+
+
+def x_tile_rows(cin: int, cexp: int, has_expand: bool, dtype) -> int:
+    """Channel rows of the x halo tile: Cin padded to the bf16 products' K
+    step of 16; without an expand the taps read x itself, Ce rows."""
+    if not has_expand:
+        return cexp
+    return -(-cin // 16) * 16 if dtype == torch.bfloat16 else cin
+
+
+def column_tiles(cout: int, dtype) -> int:
+    """Column tiles of 8 of the project: ceil(Cout / 8) in bf16; float32
+    rounds them up to 1, 2, 4 or 8."""
+    nt = -(-cout // 8)
+    return nt if dtype == torch.bfloat16 or nt <= 2 else 4 if nt <= 4 else 8
+
+
+def smem_bytes(cin: int, cexp: int, cout: int, ksize: int, has_expand: bool, dtype,
+               project: bool) -> int:
+    """Dynamic shared memory of one block of the pool pass or the project
+    pass: ``smem_plan`` of csrc/fused_mbconv.cu, byte for byte."""
+    th, cc = tile_config(dtype)
+    sz = 2 if dtype == torch.bfloat16 else 4
+    pixp = (th + 2 * (ksize // 2)) * HALO_COLS
+    s, sds, wes = _odd8(pixp), _odd8(th * TILE_W), cc + 8
+    xrows = x_tile_rows(cin, cexp, has_expand, dtype)
+    nt = column_tiles(cout, dtype) if project else 0
+    o = _align16(xrows * s * sz)
+    es = o
+    if has_expand:
+        o += _align16(cc * s * sz)
+    if project:
+        o += _align16(cc * sds * sz)
+        o = max(o, es + _align16(cout * sds * sz))   # the output tile aliases es and sd
+    o += _align16(pixp * 4)
+    w = _align16(xrows * wes * sz) if has_expand else 0
+    w += _align16(cc * sz) + _align16(cc * ksize * ksize * sz) + _align16(cc * sz) + cc * 4
+    if project:
+        w += _align16(cc * 8 * ((nt + 1) | 1) * sz)
+    return o + 2 * w
+
+
+def rp_tile_lanes(hw: int, dtype) -> torch.Tensor:
+    """Lanes of the row-padded layout that the tiles' blocks write, in the
+    kernel's order (tile by tile, row by row): the real lanes."""
+    th, _ = tile_config(dtype)
+    wp = rp_dims(hw)
+    lanes = []
+    for y0 in range(0, hw, th):
+        for x0 in range(0, hw, TILE_W):
+            ys = torch.arange(y0, min(y0 + th, hw))
+            xs = torch.arange(x0, min(x0 + TILE_W, hw))
+            lanes.append(((ys[:, None] + RP) * wp + xs[None, :] + RP).reshape(-1))
+    return torch.cat(lanes)
+
+
+def rp_ring_lanes(hw: int) -> torch.Tensor:
+    """Lanes the gap launch writes, by its thread index: RP rows above the
+    grid, the 2 RP lanes beside each of its rows, the rows below."""
+    wp = rp_dims(hw)
+    top, side = RP * wp, wp - hw
+    mid = hw * side
+    idx = torch.arange(wp * wp - hw * hw)
+    row, j = (idx - top) // side, (idx - top) % side
+    middle = (RP + row) * wp + torch.where(j < RP, j, hw + j)
+    below = (RP + hw) * wp + idx - top - mid
+    return torch.where(idx < top, idx, torch.where(idx < top + mid, middle, below))
+
+
+def zero_padded_k(act: torch.Tensor, w: torch.Tensor, step: int):
+    """A product's operands as the kernel pads its K: ``act`` (B, K, N) and
+    ``w`` (K, M) with zero rows from K up to the next multiple of ``step``
+    (the bf16 expand pads Cin to 16, the project Ce to the chunk)."""
+    pad = -act.shape[1] % step
+    return F.pad(act, (0, 0, 0, pad)), F.pad(w, (0, 0, 0, pad))
+
+
+def tanh_swish(v: torch.Tensor, rel_err: float = 0.0) -> torch.Tensor:
+    """The bf16 kernels' swish, 0.5 v (1 + tanh(0.5 v)): one special-function
+    instruction (``tanh.approx.f32``, relative error at most 2^-11, which
+    ``rel_err`` models as a factor on the tanh)."""
+    h = 0.5 * v
+    return h + h * (torch.tanh(h) * (1.0 + rel_err))
+
+
 # ------------------------------------------------------------------- kernels
 
 
@@ -218,31 +339,36 @@ def _check(name: str, x: torch.Tensor, packed: Packed, cin: int, ksize: int,
     bad = {k: tuple(t.shape) for k, (s, t) in want.items() if tuple(t.shape) != s}
     if bad or (not has_expand and cexp != cin):
         raise ValueError(f"{name}: packed shapes {bad} do not fit Cin={cin}, Ce={cexp}")
-    if cout > 64:
-        raise ValueError(f"{name}: at most 64 output channels, got {cout}")
+    if cout > MAX_COUT:
+        raise ValueError(f"{name}: at most {MAX_COUT} output channels, got {cout}")
+    if x.dtype == torch.bfloat16 and has_expand and cin > MAX_CIN_BF16:
+        raise ValueError(f"{name}: at most {MAX_CIN_BF16} input channels in bf16, got {cin}")
+    need = smem_bytes(cin, cexp, cout, ksize, has_expand, x.dtype, project=True)
+    if need > SMEM_MAX:
+        raise ValueError(f"{name}: a block needs {need} bytes of shared memory, "
+                         f"more than {SMEM_MAX}")
     return params, cexp, cout, cr
 
 
-def _run(name: str, x: torch.Tensor, mask, packed: Packed, out_shape, grid_hw, n_real: int,
+def _run(name: str, x: torch.Tensor, mask, packed: Packed, out_shape, grid_hw,
          cin: int, ksize: int, has_expand: bool, has_skip: bool) -> torch.Tensor:
+    """Launch ``fused_mbconv_<name>_launch`` on the ``grid_hw`` real pixels."""
     from . import cuda_build
 
     params, cexp, cout, cr = _check(name, x, packed, cin, ksize, has_expand)
     if has_skip and cout != cin:
         raise ValueError(f"{name}: a skip needs Cout == Cin, got {cout} and {cin}")
     lib = cuda_build.load("fused_mbconv")
-    lib.fused_mbconv_tiles.restype = ctypes.c_int
-    lib.fused_mbconv_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
     b = x.shape[0]
     h, w = grid_hw
-    tiles = lib.fused_mbconv_tiles(h, w)
+    tiles = tiles_of(h, w, x.dtype)
     partial = torch.empty((b, tiles, cexp), dtype=torch.float32, device=x.device)
     scale = torch.empty((b, cexp), dtype=torch.float32, device=x.device)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     ptrs = (ctypes.c_void_p * 10)(*[p.data_ptr() for p in params])
     fn = getattr(lib, f"fused_mbconv_{name}_launch")
     fn.restype = ctypes.c_int
-    sizes = [b, h, w] + ([n_real] if mask is not None else []) + [
+    sizes = [b, h, w] + ([RP] if mask is not None else []) + [
         cin, cexp, cout, cr, ksize, int(has_expand), int(has_skip),
         int(x.dtype == torch.bfloat16)]
     ptr_args = [x.data_ptr()] + ([mask.data_ptr()] if mask is not None else [])
@@ -282,7 +408,7 @@ def packed_mbconv(xp: torch.Tensor, packed: Packed, shape) -> torch.Tensor:
         raise ValueError(f"packed x has {n} lanes, not {shape.hw}x{shape.hw}")
     cout = packed[8].shape[1]
     out = _run("packed", xp, None, packed, (b, cout, n), (shape.hw, shape.hw),
-               n, cin, shape.ksize, shape.has_expand, shape.has_skip)
+               cin, shape.ksize, shape.has_expand, shape.has_skip)
     packed_mbconv.launches += 1
     return out
 
@@ -299,7 +425,7 @@ def packed_mbconv_rp(xp: torch.Tensor, mask: torch.Tensor, packed: Packed,
                          f"not {wp}x{wp}")
     cout = packed[8].shape[1]
     m = mask.to(xp.dtype).contiguous()
-    out = _run("rp", xp, m, packed, (b, cout, n_p), (wp, wp), shape.hw * shape.hw,
+    out = _run("rp", xp, m, packed, (b, cout, n_p), (shape.hw, shape.hw),
                cin, shape.ksize, shape.has_expand, shape.has_skip)
     packed_mbconv_rp.launches += 1
     return out
@@ -313,7 +439,7 @@ def fused_mbconv_nhwc(x: torch.Tensor, packed: Packed, ksize: int,
     b, h, w, cin = x.shape
     cout = packed[8].shape[1]
     has_expand = tuple(packed[0].shape) != (1, 1)
-    out = _run("nhwc", x, None, packed, (b, h, w, cout), (h, w), h * w, cin, ksize,
+    out = _run("nhwc", x, None, packed, (b, h, w, cout), (h, w), cin, ksize,
                has_expand, has_skip)
     fused_mbconv_nhwc.launches += 1
     return out

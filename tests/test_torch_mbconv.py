@@ -202,8 +202,16 @@ def test_the_jax_nhwc_kernel_differs_from_flax_on_the_border():
     # the row-padded layout moves its 260^2 lanes and reads its mask
     ("d0s1", "rp", (48 * 128 * 260 ** 2 * 2 + 260 ** 2 * 2) / 3.35e12 * 1e3, "bytes"),
     # taps 2*9*144 per pixel at 67 TFLOP/s + products 2*(24*144 + 144*24) at 989
-    ("d0s2b1", "nhwc", 128 * 128 ** 2 * (2 * 9 * 144 / 67e12 + 2 * 6912 / 989e12) * 1e3,
+    # + two swishes per expanded channel at 16 a clock on 132 SMs at 1.98 GHz
+    ("d0s2b1", "nhwc", 128 * 128 ** 2 * (2 * 9 * 144 / 67e12 + 2 * 6912 / 989e12
+                                         + 2 * 144 / (16 * 132 * 1.98e9)) * 1e3,
      "operations"),
+    # k5, 240 expanded channels: 2*25*240 taps, 2*(40*240 + 240*40) products, 2*240 swishes
+    ("d0s3b1", "packed", 128 * 64 ** 2 * (2 * 25 * 240 / 67e12 + 2 * 19200 / 989e12
+                                          + 2 * 240 / (16 * 132 * 1.98e9)) * 1e3,
+     "operations"),
+    # no expand: one swish per channel and pixel; the bytes still bound it
+    ("d4s1b1", "packed", 48 * 16 * 512 ** 2 * 2 / 3.35e12 * 1e3, "bytes"),
 ])
 def test_block_bound_is_the_larger_of_bytes_and_operations(name, layout, want_ms, want_by):
     ms, by = block_bound(BLOCKS[name], layout)
@@ -230,3 +238,103 @@ def test_fused_s1_keeps_the_tile_contract():
     tree = _scaled_tree(shape, seed=3)
     with pytest.raises(ValueError, match="tile_h"):
         fused_mbconv_s1(torch.from_numpy(_x(shape)), tree, 3, True, tile_h=5)
+
+
+# ---------------------------------------------- the CUDA kernel's plan, mirrored
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", list(BLOCKS))
+def test_smem_plan_fits_a_block_at_every_recorded_shape(name, dtype):
+    """Both passes of a block stay within the 232,448 bytes a block may have
+    (chip_smoke.py holds this count against the kernel's own on the card)."""
+    b = BLOCKS[name]
+    pool = mk.smem_bytes(b.cin, b.cexp, b.cout, b.ksize, b.has_expand, dtype, project=False)
+    proj = mk.smem_bytes(b.cin, b.cexp, b.cout, b.ksize, b.has_expand, dtype, project=True)
+    assert 0 < pool < proj <= mk.SMEM_MAX
+    for other_k in (3, 5):
+        assert mk.smem_bytes(b.cin, b.cexp, b.cout, other_k, b.has_expand, dtype,
+                             project=True) <= mk.SMEM_MAX
+
+
+def test_smem_plan_counts_the_largest_block_by_hand():
+    """d4s3b1, bf16, k5: x tile 64 x 728 x 2 (Cin 56 padded to 64, a 20 x 36
+    halo at pitch 728), es 32 x 728 x 2, sd 32 x 520 x 2, mask 720 x 4, two
+    weight buffers of 5120 + 64 + 1600 + 64 + 128 + 4608 (wexp, its bias, the
+    taps, their bias, the float32 SE scales, wproj). d0s1 (no expand, k3,
+    Cout 16): x 32 x 648 x 2, sd, mask 648 x 4, weights 2 x (64 + 576 + 64 +
+    128 + 1536)."""
+    b = BLOCKS["d4s3b1"]
+    want = 93184 + 46592 + 33280 + 2880 + 2 * 11584
+    assert mk.smem_bytes(b.cin, b.cexp, b.cout, 5, True, torch.bfloat16, project=True) == want
+    b = BLOCKS["d0s1"]
+    want = 41472 + 33280 + 2592 + 2 * 2368
+    assert mk.smem_bytes(b.cin, b.cexp, b.cout, 3, False, torch.bfloat16, project=True) == want
+    assert mk.tile_config(torch.bfloat16) == (16, 32) and mk.tile_config(torch.float32) == (8, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        mk._check("packed", torch.zeros((1, 512, 64), dtype=torch.bfloat16),
+                  tuple(torch.zeros(s) for s in ((1, 1), (1, 1), (512, 9), (512, 1), (512, 4), (4, 1),
+                                                 (4, 512), (512, 1), (512, 16), (16, 1))),
+                  512, 3, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("hw", [8, 20, 64, 128, 256])
+def test_rp_walk_writes_every_lane_exactly_once(hw, dtype):
+    """The tiles produce the real lanes, the gap launch the gap lanes, each
+    lane once; the tile count is the packed layout's."""
+    tiles, ring = mk.rp_tile_lanes(hw, dtype), mk.rp_ring_lanes(hw)
+    n = mk.rp_dims(hw) ** 2
+    assert tiles.numel() == hw * hw and ring.numel() == n - hw * hw
+    count = torch.bincount(torch.cat([tiles, ring]), minlength=n)
+    assert count.numel() == n and bool((count == 1).all())
+    mask = mk.rp_mask(hw, torch.float32).reshape(-1)
+    assert bool((mask[tiles] == 1).all()) and bool((mask[ring] == 0).all())
+    # the gap launch's value: zero, or x's own gap lane under a skip
+    out = torch.full((n,), float("nan"))
+    out[tiles] = 1.0
+    out[ring] = 0.0
+    torch.testing.assert_close(out, mask, rtol=0, atol=0)
+    th, _ = mk.tile_config(dtype)
+    assert mk.tiles_of(hw, hw, dtype) == -(-hw // 32) * -(-hw // th)
+
+
+@pytest.mark.parametrize("k,step", [(24, 16), (40, 16), (56, 16), (24, 32), (144, 32), (336, 32)])
+def test_padded_product_operands_contribute_exact_zeros(k, step):
+    """Cin 24/40/56 padded to the bf16 K step of 16, Ce 24/144/336 padded to
+    the chunk of 32: the padding is zero in both operands, so its products
+    are exact zeros and the sums are those of the real rows."""
+    rng = np.random.RandomState(k + step)
+    act = torch.from_numpy(rng.normal(size=(2, k, 50)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.normal(size=(k, 24)).astype(np.float32)).bfloat16()
+    actp, wp = mk.zero_padded_k(act, w, step)
+    kp = actp.shape[1]
+    assert kp % step == 0 and kp - k < step and wp.shape[0] == kp
+    assert torch.equal(actp[:, :k], act) and torch.equal(wp[:k], w)
+    tail = torch.einsum("km,bkn->bmn", wp[k:].float(), actp[:, k:].float())
+    assert tail.numel() == 0 or bool((tail == 0).all())
+    # each product is exact in float32 (two bf16 factors), so the padded sum
+    # in float64 is the unpadded one
+    full = torch.einsum("km,bkn->bmn", wp.double(), actp.double())
+    assert torch.equal(full, torch.einsum("km,bkn->bmn", w.double(), act.double()))
+    if step == 16:
+        assert kp == mk.x_tile_rows(k, 6 * k, True, torch.bfloat16)
+        assert mk.x_tile_rows(k, 6 * k, True, torch.float32) == k
+
+
+def test_tanh_swish_error_against_silu():
+    """The bf16 kernels' swish, 0.5 v (1 + tanh(0.5 v)), over [-20, 20]: the
+    form itself is silu to float32 rounding; with tanh.approx's relative
+    error of 2^-11 the absolute error is at most |v| / 2 * 2^-11 (4.9e-3 at
+    |v| = 20, 1e-3 inside |v| <= 4), below half a bf16 ulp of v from |v| = 0."""
+    v = torch.linspace(-20, 20, 400001, dtype=torch.float64)
+    want = torch.nn.functional.silu(v)
+    assert (mk.tanh_swish(v) - want).abs().max().item() < 1e-12
+    v32 = v.float()
+    want32 = torch.nn.functional.silu(v32.double())
+    assert (mk.tanh_swish(v32).double() - want32).abs().max().item() < 2e-6
+    for rel in (2.0 ** -11, -2.0 ** -11):
+        err = (mk.tanh_swish(v, rel) - want).abs()
+        assert bool((err <= v.abs() / 2 * 2.0 ** -11 + 1e-12).all())
+        assert err.max().item() <= 4.9e-3
+        assert err[v.abs() <= 4].max().item() <= 1e-3
