@@ -30,10 +30,13 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 4. pipeline: D0@512 (90 classes, random weights from seed 0), BN folded,
    three bf16 calls at batch 16 through make_predict_fn with the launch
    counters reset just before; the detections checked; then img/s at
-   batch 128 bf16;
+   batch 128 bf16; the "pixel_gather" front end at batch 16 (one NMS launch
+   a call) against "concat" on the same head outputs, and its img/s at
+   batch 128;
 5. gpu_vs_cpu: the same model in float32 (TF32 off) on the card and on the
    CPU (which takes the kernels' plain versions) at batch 2: raw head
-   outputs, then detections;
+   outputs, then detections; on the card, "pixel_gather" against
+   "anchor_major" in float32;
 6. mbconv_kernels: csrc/fused_mbconv.cu's three launchers (packed, row-
    padded, NHWC) against their plain versions in f32 and bf16, on the JAX
    tests' tiny cases, the kernel's edges (MBCONV_EDGES) and the D0 blocks at
@@ -51,7 +54,23 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    rates (f32/bf16 x chains 1/4), the f32 swish rate, the 1x1 products'
    ms, and the stages-1-3 floor against the chain phase's D0 baseline and
    the pipeline phase's ms per call;
-9. the kernels line, the card line, and the last line,
+9. predictor: Predictor(phi=0) in f32 and bf16 at five source shapes
+   (480x640, 640x480, 512x512, 1080x1920, 300x200): each shape's CUDA graph
+   replay equal to the eager call on two images, ms per image (median of
+   20) for the replay and for eager, the graphs' pool memory, the kernels
+   of one replay by torch.profiler; the card against the CPU in f32 (TF32
+   off) at 480x640; a ninth shape evicts the oldest graph;
+10. serve: BatchingPredictor over D0@512 bf16, BN folded, batch 32,
+   max_delay 5 ms, pipeline depth 2; warmup() captures the buckets 1..32;
+   lone requests and a full bucket equal predict_pipeline on the same
+   canvases; both kernels in the profile of one bucket's replay; then a
+   closed loop of C client threads calling predict_sync on 480x640 images
+   for 3 s at C = 64 with the default intra-op threads, then with one (as
+   serve.main sets it) at C = 1, 8, 32, 64, and at C = 32 with warmup()
+   called over and over alongside: img/s, p50/p95/p99 ms, overloads; every
+   answer equal to predict_pipeline's detections of its source at one of
+   the bucket sizes;
+11. the kernels line, the card line, and the last line,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -66,6 +85,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -111,6 +131,14 @@ FLOOR_REPEATS = 512
 FLOOR_STEPS = 10
 CHECK_BATCH = 16   # the kernels against their plain versions; the main-path calls
 BENCH_BATCH = 128  # timing: the batch the JAX package's bench.py measures
+# the Predictor's source shapes (h, w): landscape and portrait VGA, square at
+# the model's size, 1080p, and one the letterbox enlarges
+PREDICT_SHAPES = [(480, 640), (640, 480), (512, 512), (1080, 1920), (300, 200)]
+PREDICT_STEPS = 20  # timed calls per shape, graph and eager (the median is kept)
+SERVE_BATCH = 32
+SERVE_CLIENTS = (1, 8, 32, 64)
+SERVE_SECONDS = 3.0
+SERVE_WARMUP_CLIENTS = 32  # the closed loop with warmup() called alongside
 
 
 def emit(obj) -> None:
@@ -396,22 +424,41 @@ def phase_pipeline(et, hk, nk, card, profile_dir):
     if launches != {"head_pointwise": 2 * calls, "nms_suppress": calls}:
         raise AssertionError(f"the main path did not go through both kernels: {launches}")
 
+    # the pixel prefilter: one NMS launch a call; the same head outputs as
+    # "concat", so its detections are those of "concat" up to tie order
+    nk.suppression_keep_mask.launches = 0
+    pixel = et.predict_pipeline(model, images, front_end="pixel_gather")
+    torch.cuda.synchronize()
+    pixel_launches = nk.suppression_keep_mask.launches
+    if pixel_launches != 1:
+        raise AssertionError(f"pixel_gather launched the NMS kernel {pixel_launches} times, not once")
+    _check_detections(pixel, cfg.num_classes, CHECK_BATCH)
+    pixel_vs_concat = _agree(pixel, et.predict_pipeline(model, images, front_end="concat"),
+                             "pixel_gather vs concat, bf16", bf16=True)
+
     big = torch.from_numpy(rng.randint(0, 256, (BENCH_BATCH, size, size, 3)).astype(np.uint8)).cuda()
-    for _ in range(2):
-        _check_detections(predict(big), cfg.num_classes, BENCH_BATCH)
-    torch.cuda.synchronize()
-    steps = 5
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        out = predict(big)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    _check_detections(out, cfg.num_classes, BENCH_BATCH)
+    img_s = {}
+    for front_end in ("anchor_major", "pixel_gather"):
+        run = et.make_predict_fn(model, front_end=front_end)
+        for _ in range(2):
+            _check_detections(run(big), cfg.num_classes, BENCH_BATCH)
+        torch.cuda.synchronize()
+        steps = 5
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            out = run(big)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _check_detections(out, cfg.num_classes, BENCH_BATCH)
+        img_s[front_end] = (steps * BENCH_BATCH / dt, dt / steps * 1e3)
     rec = {"phase": "pipeline", "model": "D0@512, 90 classes, BN folded, bf16",
            "check_batch": CHECK_BATCH, "check_calls": calls, "launches": launches,
            "num_valid": [int(v) for v in n],
-           "bench_batch": BENCH_BATCH, "img_s_bf16": steps * BENCH_BATCH / dt,
-           "ms_per_call": dt / steps * 1e3,
+           "bench_batch": BENCH_BATCH, "img_s_bf16": img_s["anchor_major"][0],
+           "ms_per_call": img_s["anchor_major"][1],
+           "pixel_gather": {"nms_launches": pixel_launches, "vs_concat": pixel_vs_concat,
+                            "img_s_bf16": img_s["pixel_gather"][0],
+                            "ms_per_call": img_s["pixel_gather"][1]},
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
     emit(rec)
     if profile_dir:
@@ -420,6 +467,45 @@ def phase_pipeline(et, hk, nk, card, profile_dir):
     del big, images, model
     torch.cuda.empty_cache()
     return launches, rec["ms_per_call"]
+
+
+def _agree(a, b, label, bf16=False):
+    """Detections of two front ends on the same images.
+
+    float32: counts exactly and scores to 1e-6 by rank (the JAX package's
+    own check of its front ends); a rank whose box or class differs must be
+    a tie, its scores bit-identical in the two (nearest-upsampled BiFPN
+    pixels give bit-identical logits, which the front ends order
+    otherwise). bf16: logits on a grid of 2^-8 relative tie by the hundred
+    at the prefilters' K-th place, so the two candidate pools differ there
+    and detections near the cut may differ, and equal scores of other
+    classes or boxes swap places: counts exactly, and at least 90% of the
+    scores, bit for bit, common to the two sets. Raises on a disagreement."""
+    from collections import Counter
+
+    import torch
+
+    a, b = [t.cpu() for t in a], [t.cpu() for t in b]
+    counts_equal = bool(torch.equal(a[3], b[3]))
+    worst, differ, untied, common = 0.0, 0, 0, 0
+    for i in range(a[3].shape[0]):
+        n = min(int(a[3][i]), int(b[3][i]))
+        if n == 0:
+            continue
+        worst = max(worst, (a[1][i, :n] - b[1][i, :n]).abs().max().item())
+        other = (a[2][i, :n] != b[2][i, :n]) | (a[0][i, :n] != b[0][i, :n]).any(-1)
+        differ += int(other.sum())
+        untied += int((other & (a[1][i, :n] != b[1][i, :n])).sum())
+        scores = [Counter(t[1][i, :n].tolist()) for t in (a, b)]
+        common += sum((scores[0] & scores[1]).values())
+    total = int(a[3].sum())
+    rec = {"counts_equal": counts_equal, "detections": total, "max_abs_dscore_by_rank": worst,
+           "box_or_class_differ_by_rank": differ, "of_them_untied": untied,
+           "scores_in_common": common}
+    ok = counts_equal and (common >= 0.9 * total if bf16 else worst <= 1e-6 and untied == 0)
+    if not ok:
+        raise AssertionError(f"{label}: the front ends disagree: {rec}")
+    return rec
 
 
 def _profile(predict, images, out_dir, ms_per_call, calls: int = 3):
@@ -539,8 +625,16 @@ def phase_gpu_vs_cpu(et, tn):
                   "matched": matched, "total": total}
     if not torch.equal(dets["cuda"][3], dets["cpu"][3]) or matched < 0.98 * total:
         raise AssertionError(f"card and CPU detections differ: {end_to_end}")
+    # the pixel prefilter against the main path's front end on the card, in
+    # float32 (the head kernel and cuDNN's 1x1 conv sum in other orders; in
+    # bf16 they round one ulp apart, and logits tie, see _agree)
+    on_card = images.cuda()
+    pixel_vs_anchor_major = _agree(
+        et.predict_pipeline(models["cuda"], on_card, front_end="pixel_gather"),
+        dets["cuda"], "pixel_gather vs anchor_major, f32")
     emit({"phase": "gpu_vs_cpu", "batch": 2, "dtype": "float32, TF32 off",
-          "head_outputs": heads, "nms_same_heads": same_heads, "end_to_end": end_to_end})
+          "head_outputs": heads, "nms_same_heads": same_heads, "end_to_end": end_to_end,
+          "pixel_gather_vs_anchor_major": pixel_vs_anchor_major})
 
 
 def phase_mbconv(mk, pm):
@@ -697,6 +791,311 @@ def phase_tap_floor(tk, tf, chain_d0_ms, d0_ms):
     return worst, main, plain, launches
 
 
+def _median_ms(fn, steps):
+    """Median host time of ``fn()`` in ms over ``steps`` calls (each call
+    ends with its results on the host)."""
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _traced(call):
+    """Device operations of one ``call()`` by torch.profiler: their count,
+    their summed device ms, and the port's kernels among them by name
+    (kernels a CUDA graph replays are traced one by one)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    total, busy, port = 0, 0.0, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        total += ev.count
+        dev = getattr(ev, "self_device_time_total", None)
+        busy += (ev.self_cuda_time_total if dev is None else dev) / 1e3
+        name = _demangle_key(ev.key)
+        if name:
+            port[name] = port.get(name, 0) + ev.count
+    return total, busy, port
+
+
+def _has(kernels, prefix):
+    return any(k.startswith(prefix) for k in kernels)
+
+
+def _matched(got, want, box_tol, score_tol):
+    """How many of ``got``'s detections have a detection in ``want`` of the
+    same class, box within ``box_tol`` and score within ``score_tol``."""
+    gb, gs, gc = got
+    wb, ws, wc = want
+    hits = 0
+    for j in range(len(gs)):
+        hits += bool(((wc == gc[j]) & (np.abs(wb - gb[j]).max(-1) <= box_tol)
+                      & (np.abs(ws - gs[j]) <= score_tol)).any())
+    return hits
+
+
+def _valid(dets, num_classes):
+    boxes, scores, classes = dets
+    return bool(np.isfinite(boxes).all() and ((scores > 0) & (scores <= 1)).all()
+                and ((classes >= 0) & (classes < num_classes)).all())
+
+
+def phase_predictor(et, nk, card):
+    """Predictor(phi=0), one CUDA graph per source shape, f32 and bf16."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    images = {hw: [rng.randint(0, 256, hw + (3,)).astype(np.uint8) for _ in range(2)]
+              for hw in PREDICT_SHAPES}
+    out = {}
+    for dtype in ("f32", "bf16"):
+        # random bf16 weights put few logits above the 0.01 prior at most
+        # shapes; threshold 0 keeps every candidate, so no output is empty
+        p = et.Predictor(phi=0, dtype=dtype, seed=0, score_threshold=0.01 if dtype == "f32" else 0.0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        nk.suppression_keep_mask.launches = 0
+        rows = []
+        for hw in PREDICT_SHAPES:
+            first, second = images[hw]
+            t0 = time.perf_counter()
+            replays = [p(first)]  # two warm-up calls, the capture, the first replay
+            capture_s = time.perf_counter() - t0
+            replays.append(p(second))
+            for img, got in zip((first, second), replays):
+                want = p.eager(img)
+                if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"Predictor {dtype} {hw}: the graph replay differs from eager")
+                if not _valid(got, p.config.num_classes):
+                    raise AssertionError(f"Predictor {dtype} {hw}: invalid detections")
+            rows.append({"shape": list(hw), "detections": [len(r[1]) for r in replays],
+                         "capture_s": capture_s,
+                         "graph_ms": _median_ms(lambda: p(first), PREDICT_STEPS),
+                         "eager_ms": _median_ms(lambda: p.eager(first), PREDICT_STEPS)})
+        # warm-up, capture and eager calls launch the NMS kernel; a replay
+        # ticks no counter, so the trace of one replay shows it
+        launches = nk.suppression_keep_mask.launches
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pool_mb = (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
+        device_ops, busy_ms, kernels = _traced(lambda: p(images[PREDICT_SHAPES[0]][0]))
+        if not _has(kernels, "nms_suppress_kernel"):
+            raise AssertionError(f"Predictor {dtype}: no NMS kernel in a replay's trace: {kernels}")
+        rec = {"shapes": rows, "nms_launches_outside_replays": launches,
+               "graph_pool_reserved_mb": pool_mb, "replay_device_ops": device_ops,
+               "replay_device_busy_ms": busy_ms, "replay_port_kernels": kernels}
+        if dtype == "f32":
+            # the card against the CPU (the kernels' plain versions), one shape
+            cpu = et.Predictor(phi=0, dtype="f32", seed=0, device="cpu")
+            img = images[PREDICT_SHAPES[0]][0]
+            g, c = p(img), cpu(img)
+            hits = _matched(g, c, 1e-3, 1e-5)
+            rec["vs_cpu"] = {"shape": list(PREDICT_SHAPES[0]), "detections": [len(g[1]), len(c[1])],
+                             "matched": hits, "box_tol_px": 1e-3, "score_tol": 1e-5}
+            if len(g[1]) != len(c[1]) or hits != len(g[1]) or not np.array_equal(
+                    np.sort(g[2]), np.sort(c[2])):
+                raise AssertionError(f"Predictor f32: card and CPU differ: {rec['vs_cpu']}")
+            # a ninth shape evicts the oldest graph
+            for i in range(9 - len(PREDICT_SHAPES)):
+                p(np.zeros((200 + 8 * i, 320, 3), np.uint8))
+            cached = list(p._run_cache)
+            if len(cached) != 8 or tuple(PREDICT_SHAPES[0]) in cached:
+                raise AssertionError(f"the ninth shape did not evict the oldest graph: {cached}")
+            rec["cache_after_nine_shapes"] = [list(k) for k in cached]
+        out[dtype] = rec
+        del p
+        torch.cuda.empty_cache()
+    emit({"phase": "predictor", "model": "D0@512, 90 classes, random weights from seed 0, unfused",
+          "tf32": False, "steps": PREDICT_STEPS, **out, "card": card})
+    return out
+
+
+def _closed_loop(pred, images, expected, clients, seconds, warmups=False):
+    """C client threads, each calling predict_sync in a loop for ``seconds``
+    (the JAX package's tools/bench_serve.py load, in process). Every answer
+    must equal one of ``expected[j]``, the pipeline's detections of source j
+    at each bucket size. ``warmups``: another thread calls ``warmup()`` over
+    and over meanwhile, as a live server may."""
+    from efficientdet_tpu_torch.serve import PredictorOverloaded
+
+    lat, counts, lock = [], {"overloaded": 0, "timeouts": 0, "warmups": 0}, threading.Lock()
+    errors = []
+    stop = time.perf_counter() + seconds
+
+    def client(k):
+        i = k
+        while time.perf_counter() < stop:
+            j = i % len(images)
+            i += 1
+            t0 = time.perf_counter()
+            try:
+                got = pred.predict_sync(images[j], timeout=60)
+            except PredictorOverloaded:
+                with lock:
+                    counts["overloaded"] += 1
+                time.sleep(0.005)
+                continue
+            except TimeoutError:
+                with lock:
+                    counts["timeouts"] += 1
+                continue
+            except Exception as e:  # noqa: BLE001 — reported below, the run fails
+                errors.append(repr(e))
+                return
+            ms = (time.perf_counter() - t0) * 1e3
+            if not any(all(np.array_equal(g, w) for g, w in zip(got, want)) for want in expected[j]):
+                errors.append(f"source {j}: the answer differs from predict_pipeline's")
+                return
+            with lock:
+                lat.append(ms)
+
+    def warmer():
+        try:
+            while time.perf_counter() < stop:
+                pred.warmup()
+                counts["warmups"] += 1
+        except Exception as e:  # noqa: BLE001 — reported below, the run fails
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    if warmups:
+        threads.append(threading.Thread(target=warmer))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    elapsed = time.perf_counter() - t0
+    if errors or not lat or (warmups and not counts["warmups"]):
+        raise AssertionError(f"serve, {clients} clients: {len(lat)} answered, errors {errors[:3]}, "
+                             f"{counts}")
+    lat_a = np.asarray(lat)
+    return {"clients": clients, "n": len(lat), "img_s": len(lat) / elapsed,
+            "p50_ms": float(np.percentile(lat_a, 50)), "p95_ms": float(np.percentile(lat_a, 95)),
+            "p99_ms": float(np.percentile(lat_a, 99)), **counts, "elapsed_s": elapsed}
+
+
+def phase_serve(et, hk, nk, card):
+    """BatchingPredictor over D0@512 bf16, BN folded: buckets, exactness, load."""
+    import torch
+    from efficientdet_tpu_torch.data.common import letterbox_hostside
+
+    model, cfg = et.build_efficientdet(0, num_classes=90, dtype=torch.bfloat16, seed=0)
+    model = et.fuse_for_inference(model)
+    hk.head_pointwise_anchor_major.launches = 0
+    nk.suppression_keep_mask.launches = 0
+    # threshold 0 keeps all K = 1024 candidates valid (random weights put
+    # few logits above the 0.01 prior on letterboxed images): the NMS does
+    # the most work, and no answer is empty
+    ec = et.EvalConfig(score_threshold=0.0)
+    pred = et.BatchingPredictor(model, batch_size=SERVE_BATCH, max_delay_ms=5.0, eval_config=ec,
+                                pipeline_depth=2)
+    threads = torch.get_num_threads()
+    try:
+        t0 = time.perf_counter()
+        pred.warmup()
+        warmup_s = time.perf_counter() - t0
+        # warm-up and capture launch the kernels; a replay ticks no counter
+        launches = {"head_pointwise": hk.head_pointwise_anchor_major.launches,
+                    "nms_suppress": nk.suppression_keep_mask.launches}
+        if sorted(pred._graphs) != pred._buckets or min(launches.values()) == 0:
+            raise AssertionError(f"warmup: graphs {sorted(pred._graphs)}, launches {launches}")
+
+        rng = np.random.RandomState(5)
+        srcs = [rng.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(16)]
+        canvases = [letterbox_hostside(im, cfg.image_size) for im in srcs]
+        # lone requests ride bucket 1: equal to predict_pipeline at batch 1
+        for i in range(3):
+            got = pred.predict_sync(srcs[i], timeout=60)
+            canvas, scale = canvases[i]
+            b, s, c, n = (t.cpu() for t in et.predict_pipeline(model, torch.from_numpy(canvas[None]).cuda(), ec))
+            k = int(n[0])
+            want = (b[0, :k].numpy() / scale, s[0, :k].numpy(), c[0, :k].numpy())
+            if not all(np.array_equal(g, w) for g, w in zip(got, want)) or k == 0:
+                raise AssertionError(f"serve: request {i} differs from predict_pipeline (n={k})")
+        # every source's detections at every bucket size: a closed-loop
+        # answer must equal one of them (its batch's size decides which;
+        # batch neighbours do not change an image's detections)
+        expected = [[] for _ in srcs]
+        for b in pred._buckets:
+            order = [j % len(srcs) for j in range(-(-max(b, len(srcs)) // b) * b)]
+            for start in range(0, len(order), b):
+                idx = order[start:start + b]
+                batch = torch.from_numpy(np.stack([canvases[j][0] for j in idx])).cuda()
+                bx, sc, cl, nv = (t.cpu().numpy() for t in et.predict_pipeline(model, batch, ec))
+                for r, j in enumerate(idx):
+                    k = int(nv[r])
+                    ans = (bx[r, :k] / canvases[j][1], sc[r, :k], cl[r, :k])
+                    if not any(all(np.array_equal(g, w) for g, w in zip(ans, e)) for e in expected[j]):
+                        expected[j].append(ans)
+        variants = max(len(e) for e in expected)
+        # so an answer handed to the wrong caller cannot pass
+        owner = {}
+        for j, per_src in enumerate(expected):
+            for e in per_src:
+                owner.setdefault(b"".join(t.tobytes() for t in e), set()).add(j)
+        if any(len(js) > 1 for js in owner.values()):
+            raise AssertionError("serve: two sources share their detections; the check would be blind")
+        # a full bucket through the server's own device call
+        full = np.stack([cv for cv, _ in canvases] * (SERVE_BATCH // len(canvases)))
+
+        def one_batch():
+            with pred._device_lock:
+                staged = pred._stage(SERVE_BATCH)
+                staged.copy_(torch.from_numpy(full))
+                out = pred._predict(staged)
+            return [np.asarray(o) for o in out]
+
+        got = one_batch()
+        want = [t.cpu().numpy() for t in et.predict_pipeline(model, torch.from_numpy(full).cuda(), ec)]
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("serve: the full bucket's replay differs from predict_pipeline")
+        device_ops, busy_ms, kernels = _traced(one_batch)
+        if not (_has(kernels, "head_pw") and _has(kernels, "nms_suppress_kernel")):
+            raise AssertionError(f"serve: the replay's trace lacks a kernel: {kernels}")
+        # the load at the process's default intra-op threads, then at one a
+        # thread (serve.main's setting on the card)
+        default_threads = _closed_loop(pred, srcs, expected, SERVE_CLIENTS[-1], SERVE_SECONDS)
+        torch.set_num_threads(1)
+        t0 = time.perf_counter()
+        for im in srcs:
+            letterbox_hostside(im, cfg.image_size)
+        letterbox_ms = (time.perf_counter() - t0) * 1e3 / len(srcs)
+        levels = [_closed_loop(pred, srcs, expected, c, SERVE_SECONDS) for c in SERVE_CLIENTS]
+        # warmup() on a live server: its replays run beside the traffic's
+        with_warmups = _closed_loop(pred, srcs, expected, SERVE_WARMUP_CLIENTS, SERVE_SECONDS,
+                                    warmups=True)
+    finally:
+        pred.close()
+        torch.set_num_threads(threads)
+    emit({"phase": "serve", "model": "D0@512, 90 classes, BN folded, bf16", "score_threshold": 0.0,
+          "batch_size": SERVE_BATCH,
+          "max_delay_ms": 5.0, "pipeline_depth": 2, "warmup_s": warmup_s,
+          "launches_warmup": launches, "full_bucket_replay_device_ops": device_ops,
+          "full_bucket_replay_device_busy_ms": busy_ms,
+          "full_bucket_replay_port_kernels": kernels, "source": [480, 640],
+          "letterbox_ms_one_thread": letterbox_ms, "intraop_threads": 1,
+          "answers": "each equal to predict_pipeline's at some bucket size",
+          "answer_variants_across_buckets": variants, "levels": levels,
+          f"at_{threads}_intraop_threads": default_threads, "with_warmups": with_warmups,
+          "card": card})
+    del model
+    torch.cuda.empty_cache()
+    return levels
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-dir", default=None,
@@ -730,6 +1129,8 @@ def main() -> int:
     chains, chain_launches = phase_chain(mk, pc)
     floor_err, floor, floor_plain, floor_launches = phase_tap_floor(
         tk, tf, chains[0]["baseline_ms"], ms_per_call)
+    phase_predictor(et, nk, card)
+    phase_serve(et, hk, nk, card)
 
     def total(key):
         return sum(t[key] for t in head_t)

@@ -21,9 +21,13 @@ from .models.detector import (
     make_predict_fn,
     predict_pipeline,
 )
+from .ops.preprocess import preprocess_image
+from .predict import Predictor
+from .serve import BatchingPredictor, PredictorOverloaded
 
 __all__ = [
     "AnchorConfig", "BlockConfig", "EvalConfig", "ModelConfig", "EfficientDet",
     "build_efficientdet", "fuse_for_inference", "make_predict_fn",
-    "predict_pipeline",
+    "predict_pipeline", "preprocess_image", "Predictor", "BatchingPredictor",
+    "PredictorOverloaded",
 ] + [f"efficientdet_d{i}" for i in range(8)]

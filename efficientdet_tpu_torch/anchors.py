@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .configs import AnchorConfig
+from .utils.cuda_graph import capturable_constant
 
 BOX_MEAN = (0.0, 0.0, 0.0, 0.0)
 BOX_STD = (0.2, 0.2, 0.2, 0.2)
@@ -93,8 +94,9 @@ def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     """Regression outputs (..., 4) -> boxes, in float32."""
     deltas = deltas.float()
     anchors = anchors.float()
-    mean = torch.tensor(BOX_MEAN, dtype=torch.float32, device=deltas.device)
-    std = torch.tensor(BOX_STD, dtype=torch.float32, device=deltas.device)
+    # made by fills, not copied from the host: the serving path captures this
+    mean = capturable_constant(BOX_MEAN, deltas.device)
+    std = capturable_constant(BOX_STD, deltas.device)
     t = deltas * std + mean
     aw = anchors[..., 2] - anchors[..., 0]
     ah = anchors[..., 3] - anchors[..., 1]

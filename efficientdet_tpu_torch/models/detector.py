@@ -26,14 +26,18 @@ from ..configs import (
     ModelConfig,
     round_filters,
 )
-from ..ops.nms import batched_filter_from_anchor_major_levels, batched_filter_from_logits
+from ..ops.nms import (
+    batched_filter_from_anchor_major_levels,
+    batched_filter_from_level_logits,
+    batched_filter_from_logits,
+)
 from ..ops.preprocess import preprocess_batch_fixed
 from .bifpn import BiFPN
 from .conv import Conv2d
 from .efficientnet import EfficientNet
 from .heads import BoxNet, ClassNet, prior_prob_bias
 
-FRONT_ENDS = ("anchor_major", "concat")
+FRONT_ENDS = ("anchor_major", "concat", "pixel_gather")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -92,16 +96,19 @@ class EfficientDet(nn.Module):
         x = images.to(self.dtype).permute(0, 3, 1, 2)
         return self.bifpn(list(self.backbone(x)))
 
-    def forward(self, images: torch.Tensor, anchor_major: bool = False):
+    def forward(self, images: torch.Tensor, anchor_major: bool = False,
+                raw_levels: bool = False):
         """images (B, S, S, 3) normalised -> (class out, box out).
 
-        ``anchor_major=False``: (cls_logits (B, A, C), box_deltas (B, A, 4)).
+        Default: (cls_logits (B, A, C), box_deltas (B, A, 4)).
         ``anchor_major=True``: ((z, amax_img, hws), (zb, hws)), the input of
         ops/nms.py's anchor-major front end.
+        ``raw_levels=True``: per-level NHWC lists, (B, Hl, Wl, A*C) logits
+        and (B, Hl, Wl, A*4) deltas, the input of the pixel-gather front end.
         """
         feats = self.features(images)
-        return (self.class_net(feats, anchor_major),
-                self.box_net(feats, anchor_major))
+        return (self.class_net(feats, anchor_major, raw_levels),
+                self.box_net(feats, anchor_major, raw_levels))
 
 
 @torch.no_grad()
@@ -179,9 +186,12 @@ def predict_pipeline(
 ):
     """[normalise ->] forward -> decode -> NMS, on the model's device.
 
-    ``front_end``: ``"anchor_major"`` (default, through both kernels) or
-    ``"concat"`` (reference-shaped (B, A, C) tensors); both give the same
-    detections up to tie order.
+    ``front_end``: ``"anchor_major"`` (default, through both kernels),
+    ``"concat"`` (reference-shaped (B, A, C) tensors) or ``"pixel_gather"``
+    (the exact pixel prefilter over the heads' NHWC levels); all three give
+    the same detections up to the order of bit-identical logits. Capturable
+    in a CUDA graph once the anchors for this size are cached (one eager
+    call).
     """
     size = images.shape[1]
     front_end = front_end or "anchor_major"
@@ -197,6 +207,11 @@ def predict_pipeline(
         cls_out, box_out = model(images, anchor_major=True)
         return batched_filter_from_anchor_major_levels(
             anchors, box_out, cls_out, (size, size), eval_config
+        )
+    if front_end == "pixel_gather":
+        cls_levels, box_levels = model(images, raw_levels=True)
+        return batched_filter_from_level_logits(
+            anchors, box_levels, cls_levels, (size, size), eval_config
         )
     cls_logits, box_deltas = model(images)
     return batched_filter_from_logits(

@@ -9,10 +9,13 @@ With ``fuse_bn=True`` the per-level BN folds into per-level copies of the
 shared pointwise (``pw_l{lvl}_d{i}``) and the depthwise stays shared
 (``conv{i}_dw``); utils/fold_bn.py makes those weights.
 
-Two output paths:
+Three output paths:
 
 * ``anchor_major=False``: per level, the final 1x1 conv, reshaped to
   (B, H*W*A, out) and concatenated over levels (the ``"concat"`` front end);
+* ``raw_levels=True``: per level, the final conv's output in NHWC conv
+  layout, (B, H, W, A*out), not concatenated (the ``"pixel_gather"`` front
+  end);
 * ``anchor_major=True`` (the main path): per level, only the final
   depthwise; its output becomes NHWC pixel rows ``b*H*W + p``, the rows of
   all levels are concatenated, and ONE launch of the head pointwise kernel
@@ -77,16 +80,19 @@ class _Head(nn.Module):
             x = F.silu(x)
         return x
 
-    def forward(self, feats: Sequence[torch.Tensor], anchor_major: bool = False):
+    def forward(self, feats: Sequence[torch.Tensor], anchor_major: bool = False,
+                raw_levels: bool = False):
         if len(feats) != self.num_levels:
             raise ValueError(f"expected {self.num_levels} levels, got {len(feats)}")
+        if anchor_major and raw_levels:
+            raise ValueError("anchor_major and raw_levels exclude each other")
         if not anchor_major:
             outputs = []
             for lvl, x in enumerate(feats):
-                x = self.final(self._tower(x, lvl))
-                outputs.append(
-                    x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, self.num_outputs)
-                )
+                x = self.final(self._tower(x, lvl)).permute(0, 2, 3, 1)  # NHWC
+                outputs.append(x if raw_levels else x.reshape(x.shape[0], -1, self.num_outputs))
+            if raw_levels:
+                return outputs  # per level (B, H, W, A*num_outputs)
             return torch.cat(outputs, dim=1)  # (B, A_total, num_outputs)
 
         rows, hws = [], []
@@ -125,8 +131,8 @@ class ClassNet(nn.Module):
         self.net = _Head(width, depth, num_classes, num_anchors, num_levels,
                          True, bn_epsilon, fuse_bn)
 
-    def forward(self, feats, anchor_major: bool = False):
-        return self.net(feats, anchor_major)
+    def forward(self, feats, anchor_major: bool = False, raw_levels: bool = False):
+        return self.net(feats, anchor_major, raw_levels)
 
 
 class BoxNet(nn.Module):
@@ -139,5 +145,5 @@ class BoxNet(nn.Module):
         self.net = _Head(width, depth, 4, num_anchors, num_levels,
                          False, bn_epsilon, fuse_bn)
 
-    def forward(self, feats, anchor_major: bool = False):
-        return self.net(feats, anchor_major)
+    def forward(self, feats, anchor_major: bool = False, raw_levels: bool = False):
+        return self.net(feats, anchor_major, raw_levels)

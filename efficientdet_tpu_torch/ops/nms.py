@@ -1,13 +1,20 @@
 """Batched, static-shape, per-class NMS in logit space.
 
-Counterpart of the JAX package's ``ops/nms.py`` (the ``"anchor_major"`` and
-``"concat"`` front ends and their shared tail). Pipeline per image:
+Counterpart of the JAX package's ``ops/nms.py``: the readable spec
+(:func:`filter_detections`, probability space, plain torch, sharing no code
+with the rest), and the production path with its three front ends
+(``"anchor_major"``, ``"concat"``, ``"pixel_gather"``) and their shared
+tail. Pipeline per image:
 
 1. anchor prefilter: the top ``pre_nms_top_k`` anchors by best-class logit;
 2. per-anchor class cap (``per_anchor_top_c``), then the score-threshold
    mask in logit space and a stable sort of the (anchor, class) pairs;
 3. suppression of the top K pairs (ops/nms_kernel.py);
 4. the top ``max_detections`` kept pairs; sigmoid on those only.
+
+The production path holds no host sync and no shape that depends on the
+data, so the serving path captures it in a CUDA graph; the pixel
+prefilter's per-level gathers stay masked gathers for that reason.
 
 Every top-k here is a stable descending sort, so ties keep the lower index
 first, as ``lax.top_k`` does. (The JAX package's default prefilter is an
@@ -21,7 +28,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..anchors import clip_boxes, decode_boxes
+from ..anchors import clip_boxes, decode_boxes, iou_matrix
 from ..configs import EvalConfig
 from .nms_kernel import suppression_keep_mask
 
@@ -33,6 +40,97 @@ def _logit(p: float) -> float:
     if p <= 0.0:
         return _NEG_INF / 2
     return float(np.log(p / (1.0 - p)))
+
+
+def _fixpoint_suppress(sup: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Greedy-NMS keep mask by fixpoint iteration (the spec's, on the host's clock).
+
+    sup: (K, K) bool, sup[j, i] True iff candidate j (higher score, j < i)
+    suppresses candidate i when kept. valid: (K,) bool.
+    """
+    k = valid.shape[0]
+    sup_f = sup.float()
+    keep, prev = valid, torch.zeros_like(valid)
+    it = 0
+    while it < k and not torch.equal(keep, prev):
+        suppressed = (keep.float() @ sup_f) > 0.5
+        keep, prev = valid & ~suppressed, keep
+        it += 1
+    return keep
+
+
+def filter_detections(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    score_threshold: float = 0.01,
+    nms_iou_threshold: float = 0.5,
+    max_detections: int = 100,
+    pre_nms_top_k: int = 1000,
+):
+    """Per-class NMS for one image: the READABLE SPEC, in probability space.
+
+    boxes (A, 4) decoded xyxy, scores (A, C) sigmoid scores. Kept apart
+    from the production path on purpose (it shares no code with it and
+    reaches no kernel), so the tests can pin one with the other. Returns
+    (boxes (D, 4) zero-padded, scores (D,) -1-padded, classes (D,) int32
+    -1-padded, num_valid () int32), D = ``max_detections``.
+    """
+
+    def top_k(x, k):  # descending, ties to the lower index, as lax.top_k
+        vals, idx = torch.sort(x, descending=True, stable=True)
+        return vals[:k], idx[:k]
+
+    num_anchors, num_classes = scores.shape
+    scores = scores.float()
+    boxes = boxes.float()
+
+    # 1. anchor prefilter
+    k_anchor = min(pre_nms_top_k, num_anchors)
+    _, top_anchor = top_k(scores.amax(dim=1), k_anchor)
+    cand_scores = scores[top_anchor]  # (Ka, C)
+    cand_boxes_a = boxes[top_anchor]  # (Ka, 4)
+
+    # 2. pair top-k over the prefiltered block
+    k = min(pre_nms_top_k, k_anchor * num_classes)
+    flat = cand_scores.reshape(-1)
+    flat = torch.where(flat > score_threshold, flat, torch.full_like(flat, _NEG_INF))
+    top_scores, top_idx = top_k(flat, k)
+    pair_anchor = top_idx // num_classes
+    pair_class = (top_idx % num_classes).to(torch.int32)
+    cand_boxes = cand_boxes_a[pair_anchor]  # (K, 4)
+    valid = top_scores > _NEG_INF / 2
+
+    # 3. suppression: a higher-scored, kept, same-class overlapping candidate kills i
+    idx = torch.arange(k, device=boxes.device)
+    sup = ((iou_matrix(cand_boxes, cand_boxes) > nms_iou_threshold)
+           & (pair_class[:, None] == pair_class[None, :]) & (idx[:, None] < idx[None, :]))
+    keep = _fixpoint_suppress(sup, valid)
+
+    # 4. the top max_detections kept candidates
+    kept_scores = torch.where(keep, top_scores, torch.full_like(top_scores, _NEG_INF))
+    n_out = min(max_detections, k)
+    det_scores, det_idx = top_k(kept_scores, n_out)
+    if n_out < max_detections:
+        pad = max_detections - n_out
+        det_scores = torch.nn.functional.pad(det_scores, (0, pad), value=_NEG_INF)
+        det_idx = torch.nn.functional.pad(det_idx, (0, pad))
+    det_valid = det_scores > _NEG_INF / 2
+    det_boxes = torch.where(det_valid[:, None], cand_boxes[det_idx], torch.zeros((), device=boxes.device))
+    det_classes = torch.where(det_valid, pair_class[det_idx], torch.full_like(pair_class[:1], -1))
+    det_scores = torch.where(det_valid, det_scores, torch.full_like(det_scores, -1.0))
+    return det_boxes, det_scores, det_classes, det_valid.sum(dtype=torch.int32)
+
+
+def batched_filter_detections(
+    boxes: torch.Tensor, scores: torch.Tensor, config: EvalConfig = EvalConfig()
+):
+    """:func:`filter_detections` over the batch: boxes (B, A, 4), scores (B, A, C)."""
+    outs = [
+        filter_detections(b, s, config.score_threshold, config.nms_iou_threshold,
+                          config.max_detections, config.pre_nms_top_k)
+        for b, s in zip(boxes, scores)
+    ]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
 def _topk(x: torch.Tensor, k: int):
@@ -123,6 +221,104 @@ def batched_filter_from_logits(
     cand_deltas = torch.gather(
         box_deltas, 1, top_anchor[..., None].expand(bsz, k_anchor, 4)
     ).float()
+    cand_boxes_a = clip_boxes(decode_boxes(cand_deltas, cand_anchors), image_hw)
+    return _pairs_and_suppress(cand_logits, cand_boxes_a, num_classes, config)
+
+
+def filter_detections_from_logits(
+    anchors: torch.Tensor,
+    box_deltas: torch.Tensor,
+    cls_logits: torch.Tensor,
+    image_hw: Tuple[int, int],
+    score_threshold: float = 0.01,
+    nms_iou_threshold: float = 0.5,
+    max_detections: int = 100,
+    pre_nms_top_k: int = 1024,
+):
+    """One image, selection in logit space: (A, 4) deltas, (A, C) logits.
+
+    :func:`batched_filter_from_logits` at batch 1 with the parity-exact
+    preset (no per-anchor class cap), so the single-image path can never
+    drift from the batched one. The same detections as decoding every
+    anchor and :func:`filter_detections` on the sigmoid scores.
+    """
+    config = EvalConfig.exact(
+        cls_logits.shape[-1],
+        score_threshold=score_threshold,
+        nms_iou_threshold=nms_iou_threshold,
+        max_detections=max_detections,
+        pre_nms_top_k=pre_nms_top_k,
+    )
+    boxes, scores, classes, nvalid = batched_filter_from_logits(
+        anchors, box_deltas[None], cls_logits[None], image_hw, config
+    )
+    return boxes[0], scores[0], classes[0], nvalid[0]
+
+
+def batched_filter_from_level_logits(
+    anchors: torch.Tensor,
+    box_levels,
+    cls_levels,
+    image_hw: Tuple[int, int],
+    config: EvalConfig = EvalConfig(),
+):
+    """The ``"pixel_gather"`` front end over the heads' raw NHWC levels.
+
+    cls_levels / box_levels: per level (B, Hl, Wl, A*C) logits and
+    (B, Hl, Wl, A*4) deltas. A pixel prefilter replaces the (B, A_total, C)
+    concat:
+
+    1. per-pixel max over the A*C channels, concatenated over levels;
+    2. the top-K pixels: a pixel's max is at least each of its anchors'
+       best logit, so at most K-1 pixels outrank the pixel of any top-K
+       anchor, and the top-K pixels hold every top-K anchor;
+    3. the K pixel rows gathered per level (masked gathers: no shape that
+       depends on the data), then the exact top-K anchors of that pool.
+
+    The same detections as :func:`batched_filter_from_logits` on the
+    concatenated tensors, up to the order of bit-identical logits.
+    """
+    bsz = cls_levels[0].shape[0]
+    a_cell = box_levels[0].shape[-1] // 4
+    num_classes = cls_levels[0].shape[-1] // a_cell
+
+    # 1. per-pixel max over all anchor x class channels
+    sizes = [lvl.shape[1] * lvl.shape[2] for lvl in cls_levels]
+    pixel_best = torch.cat(
+        [lvl.amax(dim=-1).reshape(bsz, n) for lvl, n in zip(cls_levels, sizes)], dim=1
+    )  # (B, P) model dtype
+
+    # 2. top-K pixels (a superset of the top-K anchors' pixels)
+    k_pix = min(config.pre_nms_top_k, pixel_best.shape[1])
+    top_pixel = _topk(pixel_best, k_pix)[1]  # (B, Kp) global pixel ids
+
+    # 3. the K pixel rows, per level, by masked gathers
+    cls_rows = cls_levels[0].new_zeros((bsz, k_pix, a_cell * num_classes))
+    box_rows = box_levels[0].new_zeros((bsz, k_pix, a_cell * 4))
+    off = 0
+    for lvl_c, lvl_b, n in zip(cls_levels, box_levels, sizes):
+        local = top_pixel - off
+        in_lvl = (local >= 0) & (local < n)
+        li = local.clamp(0, n - 1)[..., None]
+        got_c = torch.gather(lvl_c.reshape(bsz, n, -1), 1, li.expand(-1, -1, cls_rows.shape[-1]))
+        cls_rows = torch.where(in_lvl[..., None], got_c, cls_rows)
+        got_b = torch.gather(lvl_b.reshape(bsz, n, -1), 1, li.expand(-1, -1, box_rows.shape[-1]))
+        box_rows = torch.where(in_lvl[..., None], got_b, box_rows)
+        off += n
+
+    # 4. the exact top-K anchors of the (B, Kp * A_cell) pool
+    pool = k_pix * a_cell
+    cand_all = cls_rows.reshape(bsz, pool, num_classes)
+    k_anchor = min(config.pre_nms_top_k, pool)
+    top_local = _topk(cand_all.amax(dim=-1), k_anchor)[1]  # ids into the pool
+    cand_logits = torch.gather(cand_all, 1, top_local[..., None].expand(-1, -1, num_classes))
+    cand_deltas = torch.gather(
+        box_rows.reshape(bsz, pool, 4), 1, top_local[..., None].expand(-1, -1, 4)
+    ).float()
+    # the anchors table orders level-major, then (pixel, anchor), as the
+    # concat front end flattens
+    gpix = torch.gather(top_pixel, 1, top_local // a_cell)
+    cand_anchors = anchors.float()[gpix * a_cell + top_local % a_cell]
     cand_boxes_a = clip_boxes(decode_boxes(cand_deltas, cand_anchors), image_hw)
     return _pairs_and_suppress(cand_logits, cand_boxes_a, num_classes, config)
 

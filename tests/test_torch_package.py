@@ -1,4 +1,9 @@
-"""The port stands alone: no JAX, no flax, nothing of efficientdet_tpu."""
+"""The port stands alone: no JAX, no flax, nothing of efficientdet_tpu.
+
+Nor cv2 or PIL, which the machine that runs the port on the card lacks:
+only the host-only demo helpers (utils/image.py), the CLI's drawing and the
+HTTP handler import them, inside the function that needs them.
+"""
 
 import ast
 import os
@@ -15,7 +20,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "efficientdet_tpu_torch")
 # the top-level experiments/ package is the JAX package's; the port's own
 # efficientdet_tpu_torch.experiments (relative imports too) is allowed
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "efficientdet_tpu", "experiments")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "efficientdet_tpu", "experiments")
+# imported only inside a function, and only in these files
+HOST_ONLY = ("cv2", "PIL")
+HOST_ONLY_FILES = ("utils/image.py", "predict.py", "serve.py")
 
 
 def _modules():
@@ -28,7 +36,7 @@ def test_every_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
         f"for name in {_modules()!r}: importlib.import_module(name)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + HOST_ONLY!r})\n"
         "print(bad)\n"
         "assert not bad, bad\n"
     )
@@ -49,18 +57,51 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", [
-    os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")
-] + [os.path.join(ROOT, "chip_smoke.py")])
+def _module_level_imports(path):
+    """The imports a module runs when it is imported (not inside a function)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        todo.extend(ast.iter_child_nodes(node))
+
+
+SOURCES = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")] + [
+    os.path.join(ROOT, "chip_smoke.py")]
+
+
+@pytest.mark.parametrize("path", SOURCES)
 def test_no_forbidden_import_in_source(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+    bad = [m for m in _module_level_imports(path) if m.split(".")[0] in HOST_ONLY]
+    assert not bad, f"{path} imports {bad} when it is imported"
+    if not path.replace(os.sep, "/").endswith(tuple(f"efficientdet_tpu_torch/{f}" for f in HOST_ONLY_FILES)):
+        bad = [m for m in _imports(path) if m.split(".")[0] in HOST_ONLY]
+        assert not bad, f"{path} imports {bad}"
+
+
+def test_host_only_guard_sees_function_level_imports(tmp_path):
+    src = tmp_path / "probe.py"
+    src.write_text("import numpy\ntry:\n    import cv2\nexcept ImportError:\n    pass\n"
+                   "def f():\n    from PIL import Image\n")
+    assert sorted(_module_level_imports(str(src))) == ["cv2", "numpy"]
+    assert "PIL" in list(_imports(str(src)))
 
 
 def test_guard_walks_the_port_experiments(tmp_path):
     mods = _modules()
     for name in ("experiments.packed_mbconv", "experiments.mbconv", "experiments.packed_chain",
-                 "experiments.tap_floor", "ops.mbconv_kernel", "ops.tap_floor_kernel"):
+                 "experiments.tap_floor", "ops.mbconv_kernel", "ops.tap_floor_kernel",
+                 "predict", "inference", "serve", "data.common", "utils.image",
+                 "utils.checkpoint", "utils.cuda_graph"):
         assert f"efficientdet_tpu_torch.{name}" in mods
     src = tmp_path / "probe.py"
     src.write_text("from ..experiments import packed_mbconv\nimport experiments.packed_chain\n")
@@ -105,6 +146,21 @@ def test_entry_point_raises_without_gpu(monkeypatch):
         efficientdet_tpu_torch.build_efficientdet(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         efficientdet_tpu_torch.efficientdet_d0(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        efficientdet_tpu_torch.Predictor()
+    from efficientdet_tpu_torch.predict import main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--image", "unused.png"])
+
+
+def test_graphs_need_a_cuda_input():
+    from efficientdet_tpu_torch.utils.cuda_graph import GraphedCall, capturable_constant
+
+    with pytest.raises(ValueError, match="CUDA input"):
+        GraphedCall(lambda x: x + 1, torch.zeros(3), pool=None)
+    values = (0.485, 0.456, 0.406)
+    assert torch.equal(capturable_constant(values, "cpu"), torch.tensor(values, dtype=torch.float32))
 
 
 def test_wrappers_reject_other_devices():
@@ -172,3 +228,20 @@ def test_mbconv_and_floor_kernels_on_the_gpu():
     for op, chains in (("fma", 1), ("fma", 4), ("swish", 4)):
         torch.testing.assert_close(tap_floor(x, op, 9, 3, chains), tap_floor_reference(x, op, 9, 3, chains),
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_predictor_graph_replay_equals_eager():
+    """On a GPU: a Predictor's CUDA graph at one source shape, replayed on
+    two images, gives exactly what the eager pipeline gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs the Predictor at full size")
+    import numpy as np
+
+    p = efficientdet_tpu_torch.Predictor(phi=0, num_classes=8, image_size=256)
+    rng = np.random.RandomState(0)
+    for _ in range(2):
+        img = rng.randint(0, 256, (120, 200, 3)).astype(np.uint8)
+        for got, want in zip(p(img), p.eager(img)):
+            np.testing.assert_array_equal(got, want)
+    assert list(p._run_cache) == [(120, 200)]
