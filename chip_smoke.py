@@ -4,7 +4,8 @@
     python3 chip_smoke.py                    # the repository's GPU check
     python3 chip_smoke.py --profile-dir DIR  # also a torch.profiler breakdown
                                              # of three back-to-back batch-128
-                                             # calls, with their chrome trace
+                                             # calls and of two training steps,
+                                             # with their chrome traces
                                              # written into DIR
 
 Phases, each printing one JSON line (any failure raises, exit code != 0):
@@ -59,7 +60,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    replay equal to the eager call on two images, ms per image (median of
    20) for the replay and for eager, the graphs' pool memory, the kernels
    of one replay by torch.profiler; the card against the CPU in f32 (TF32
-   off) at 480x640; a ninth shape evicts the oldest graph;
+   off) at 480x640; a ninth shape evicts the oldest graph; 8 threads
+   sharing one instance at two source shapes, each answer equal to eager()
+   of its own image;
 10. serve: BatchingPredictor over D0@512 bf16, BN folded, batch 32,
    max_delay 5 ms, pipeline depth 2; warmup() captures the buckets 1..32;
    lone requests and a full bucket equal predict_pipeline on the same
@@ -69,8 +72,22 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    serve.main sets it) at C = 1, 8, 32, 64, and at C = 32 with warmup()
    called over and over alongside: img/s, p50/p95/p99 ms, overloads; every
    answer equal to predict_pipeline's detections of its source at one of
-   the bucket sizes;
-11. the kernels line, the card line, and the last line,
+   the bucket sizes; one POST of a PNG to a live make_http_server: a
+   status line, 501 on a host without PIL, else 200 with
+   predict_pipeline's detections;
+11. train: the training step (train_lib.make_train_step) at D0@512, batch
+   64, TrainConfig defaults, on the JAX package's tools/bench_train.py
+   batch (seed 0, 12 boxes an image), in float32 (TF32 off), bf16, and
+   float32 with remat: 2 warm-up and 10 timed steps, img/s, ms/step, peak memory, every step's
+   loss and gradient norm (finite, the 10th timed loss below the 1st), the
+   launch counters set to 0 before and read after (the training path runs
+   none of the port's kernels); one float32 step of the slim model on the
+   card against the CPU; the trained state through CheckpointManager and
+   Predictor.from_checkpoint (replay == eager() == the in-memory model);
+   the trained weights folded through the main path (both kernels);
+   with --profile-dir, two profiled float32 steps (kernels and ATen
+   operators by device time, the trace as train_trace.json.gz);
+12. the kernels line, the card line, and the last line,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -135,10 +152,19 @@ BENCH_BATCH = 128  # timing: the batch the JAX package's bench.py measures
 # the model's size, 1080p, and one the letterbox enlarges
 PREDICT_SHAPES = [(480, 640), (640, 480), (512, 512), (1080, 1920), (300, 200)]
 PREDICT_STEPS = 20  # timed calls per shape, graph and eager (the median is kept)
+PREDICT_THREADS = 8  # threads sharing one Predictor at two source shapes
 SERVE_BATCH = 32
 SERVE_CLIENTS = (1, 8, 32, 64)
 SERVE_SECONDS = 3.0
 SERVE_WARMUP_CLIENTS = 32  # the closed loop with warmup() called alongside
+# training: the JAX package's tools/bench_train.py batch (64, 12 boxes an
+# image in 100 slots), 2 warm-up and 10 timed steps
+TRAIN_SIZE = 512
+TRAIN_BATCH = 64
+TRAIN_GT = 12
+TRAIN_MAX_GT = 100
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 10
 
 
 def emit(obj) -> None:
@@ -162,8 +188,12 @@ def phase_device(cuda_build):
         print(f"--- nvcc {name} ---\n{log}", file=sys.stderr)
     name, limit = (s.strip() for s in line.split(",", 1))
     regs, spills = _registers(cuda_build.build_logs.values())
+    import importlib.util
+
+    # the host's image libraries: the HTTP handler decodes with PIL
+    host_modules = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2")}
     emit({"phase": "device", "name": name, "power_limit": limit, "build_s": build_s,
-          "registers": regs, "spill_store_bytes": spills})
+          "host_modules": host_modules, "registers": regs, "spill_store_bytes": spills})
     return line
 
 
@@ -463,7 +493,7 @@ def phase_pipeline(et, hk, nk, card, profile_dir):
     emit(rec)
     if profile_dir:
         emit({"phase": "profile", "bench_batch": BENCH_BATCH,
-              **_profile(predict, big, profile_dir, rec["ms_per_call"])})
+              **_profile(lambda: predict(big), profile_dir, rec["ms_per_call"])})
     del big, images, model
     torch.cuda.empty_cache()
     return launches, rec["ms_per_call"]
@@ -508,42 +538,51 @@ def _agree(a, b, label, bf16=False):
     return rec
 
 
-def _profile(predict, images, out_dir, ms_per_call, calls: int = 3):
-    """Device time by kernel, per call, over ``calls`` back-to-back
-    batch-128 calls.
+def _profile(call, out_dir, ms_per_call, calls: int = 3, trace: str = "pipeline_trace.json"):
+    """Device time by kernel and by ATen operator, per call, over ``calls``
+    back-to-back calls of ``call()``; the chrome trace goes to
+    ``out_dir/trace``.
 
     Idle share twice: against the profiled wall time (the profiler adds host
-    work) and against ``ms_per_call``, the unprofiled steady-state time.
+    work) and against ``ms_per_call``, the unprofiled steady-state time. An
+    operator's device time is that of the kernels it launched itself (its
+    self device time), so the operators' rows add up to the busy time.
     """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def device_ms(ev):
+        dev = getattr(ev, "self_device_time_total", None)
+        return (ev.self_cuda_time_total if dev is None else dev) / 1e3 / calls
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            predict(images)
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    rows = []
+    rows, ops = [], []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # kernels only, not the ops around them
+        ms = device_ms(ev)
+        if ms <= 0:
             continue
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = ev.self_cuda_time_total
-        if dev > 0:
-            rows.append((dev / 1e3 / calls, ev.count / calls, ev.key))
+        if ev.device_type == DeviceType.CUDA:  # kernels
+            rows.append((ms, ev.count / calls, ev.key))
+        else:  # the operators that launched them
+            ops.append((ms, ev.count / calls, ev.key))
     rows.sort(reverse=True)
+    ops.sort(reverse=True)
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "pipeline_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, trace))
     busy = sum(r[0] for r in rows)
     return {"calls": calls, "wall_ms": wall_ms, "device_busy_ms": busy,
             "launches": sum(r[1] for r in rows),
             "idle_share_profiled": max(0.0, 1.0 - busy / wall_ms),
             "idle_share_steady": max(0.0, 1.0 - busy / ms_per_call),
             "top": [{"ms": r[0], "count": r[1], "name": r[2][:100]} for r in rows[:30]],
+            "top_ops": [{"ms": r[0], "count": r[1], "name": r[2][:100]} for r in ops[:25]],
             # the port's own kernels, wherever they rank
             "port_kernels": [{"ms": r[0], "count": r[1], "name": _demangle_key(r[2])}
                              for r in rows if _demangle_key(r[2])]}
@@ -896,6 +935,8 @@ def phase_predictor(et, nk, card):
         rec = {"shapes": rows, "nms_launches_outside_replays": launches,
                "graph_pool_reserved_mb": pool_mb, "replay_device_ops": device_ops,
                "replay_device_busy_ms": busy_ms, "replay_port_kernels": kernels}
+        rec["threads"] = _predictor_threads(p, [images[hw][i] for hw in PREDICT_SHAPES[:2]
+                                                for i in range(2)])
         if dtype == "f32":
             # the card against the CPU (the kernels' plain versions), one shape
             cpu = et.Predictor(phi=0, dtype="f32", seed=0, device="cpu")
@@ -920,6 +961,95 @@ def phase_predictor(et, nk, card):
     emit({"phase": "predictor", "model": "D0@512, 90 classes, random weights from seed 0, unfused",
           "tf32": False, "steps": PREDICT_STEPS, **out, "card": card})
     return out
+
+
+def _predictor_threads(p, images, threads=PREDICT_THREADS, calls=5):
+    """``threads`` threads calling one Predictor on ``images`` (two source
+    shapes, so two graphs of one pool): every answer must equal ``eager()``
+    of the caller's own image."""
+    want = [p.eager(img) for img in images]
+    errors, done = [], []
+
+    def caller(k):
+        j = k % len(images)
+        for _ in range(calls):
+            got = p(images[j])
+            if not all(np.array_equal(g, w) for g, w in zip(got, want[j])):
+                errors.append(j)
+        done.append(k)
+
+    pool = [threading.Thread(target=caller, args=(k,)) for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=300)
+    if errors or len(done) != threads:
+        raise AssertionError(f"Predictor threads: {len(errors)} answers differ from eager(), "
+                             f"{len(done)} of {threads} threads finished")
+    return {"threads": threads, "calls": threads * calls,
+            "shapes": sorted({tuple(int(v) for v in img.shape[:2]) for img in images}),
+            "answers": "each equal to eager() of its own image"}
+
+
+def _png_bytes(img):
+    """An RGB uint8 image as PNG bytes, with the standard library alone (the
+    check must run on a host without an image library too)."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[i].tobytes() for i in range(h))
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _http_check(pred, src, expected):
+    """One POST of ``src`` as a PNG to a live make_http_server: a status
+    line, 501 where PIL is missing, else 200 with the detections of one of
+    ``expected`` (predict_pipeline's at each bucket size), as the handler
+    rounds them."""
+    import http.client
+    import importlib.util
+    import json as json_
+
+    from efficientdet_tpu_torch.serve import make_http_server
+
+    server = make_http_server(pred, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
+        conn.request("POST", "/predict", body=_png_bytes(src))
+        resp = conn.getresponse()
+        status, reason, body = resp.status, resp.reason, resp.read()
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    has_pil = importlib.util.find_spec("PIL") is not None
+    rec = {"status": status, "reason": reason, "pil": has_pil}
+    if not has_pil:
+        if status != 501:
+            raise AssertionError(f"HTTP without PIL: status {status}, not 501")
+        return rec
+    if status != 200:
+        raise AssertionError(f"HTTP: status {status}: {reason}")
+    dets = json_.loads(body)["detections"]
+
+    def rounded(ans):
+        return [{"box": [round(float(x), 2) for x in b], "score": round(float(s), 4), "class": int(c)}
+                for b, s, c in zip(*ans)]
+
+    if not any(dets == rounded(e) for e in expected):
+        raise AssertionError("HTTP: the detections differ from predict_pipeline's")
+    rec["detections"] = len(dets)
+    return rec
 
 
 def _closed_loop(pred, images, expected, clients, seconds, warmups=False):
@@ -1077,6 +1207,7 @@ def phase_serve(et, hk, nk, card):
         # warmup() on a live server: its replays run beside the traffic's
         with_warmups = _closed_loop(pred, srcs, expected, SERVE_WARMUP_CLIENTS, SERVE_SECONDS,
                                     warmups=True)
+        http = _http_check(pred, srcs[0], expected[0])
     finally:
         pred.close()
         torch.set_num_threads(threads)
@@ -1090,10 +1221,243 @@ def phase_serve(et, hk, nk, card):
           "answers": "each equal to predict_pipeline's at some bucket size",
           "answer_variants_across_buckets": variants, "levels": levels,
           f"at_{threads}_intraop_threads": default_threads, "with_warmups": with_warmups,
-          "card": card})
+          "http": http, "card": card})
     del model
     torch.cuda.empty_cache()
     return levels
+
+
+def _bench_train_batch(size, batch, seed=0):
+    """The JAX package's tools/bench_train.py batch: uint8 noise images,
+    TRAIN_GT boxes an image of 16-64 px, 90 classes, TRAIN_MAX_GT slots; the
+    same draws from the same numpy seed."""
+    rng = np.random.RandomState(seed)
+    boxes = np.zeros((batch, TRAIN_MAX_GT, 4), np.float32)
+    labels = np.full((batch, TRAIN_MAX_GT), -1, np.int32)
+    x1 = rng.uniform(0, size - 64, (batch, TRAIN_GT))
+    y1 = rng.uniform(0, size - 64, (batch, TRAIN_GT))
+    boxes[:, :TRAIN_GT, 0] = x1
+    boxes[:, :TRAIN_GT, 1] = y1
+    boxes[:, :TRAIN_GT, 2] = x1 + rng.uniform(16, 64, (batch, TRAIN_GT))
+    boxes[:, :TRAIN_GT, 3] = y1 + rng.uniform(16, 64, (batch, TRAIN_GT))
+    labels[:, :TRAIN_GT] = rng.randint(0, 90, (batch, TRAIN_GT))
+    images = rng.randint(0, 256, (batch, size, size, 3)).astype(np.uint8)
+    return {"images": images, "gt_boxes": boxes, "gt_labels": labels}
+
+
+def _launch_counts(kernels):
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def _train_timed(et, dtype, batch, kernels, card, remat=False):
+    """D0@512 at TRAIN_BATCH: TRAIN_WARMUP + TRAIN_STEPS steps on one batch,
+    the timed ones fenced by torch.cuda.synchronize(); the launch counters
+    set to 0 before and read after (the training path runs no kernel of the
+    port). Returns the record and the trained model and state."""
+    import torch
+
+    model, cfg = et.build_efficientdet(0, num_classes=90, dtype=dtype, seed=0, remat=remat)
+    tc = et.TrainConfig(batch_size=TRAIN_BATCH, max_gt_boxes=TRAIN_MAX_GT)
+    state = et.create_train_state(model, tc)
+    step = et.make_train_step(model, tc)
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    metrics = []
+    t_first = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        state, m = step(state, batch, gen)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t_first
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch, gen)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _launch_counts(kernels)
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    timed = losses[TRAIN_WARMUP:]
+    rec = {"dtype": str(dtype).replace("torch.", ""), "batch": TRAIN_BATCH, "remat": remat,
+           "tf32": torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32,
+           "warmup_steps": TRAIN_WARMUP, "warmup_s": warmup_s, "steps": TRAIN_STEPS,
+           "img_s": TRAIN_STEPS * TRAIN_BATCH / dt, "ms_per_step": dt / TRAIN_STEPS * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss": losses, "grad_norm": norms,
+           "cls_loss_last": float(metrics[-1]["cls_loss"]), "box_loss_last": float(metrics[-1]["box_loss"]),
+           "num_positives": float(metrics[-1]["num_positives"]), "kernel_launches": launches,
+           "card": card}
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"train {rec['dtype']}: a non-finite loss or gradient norm: {rec}")
+    if not timed[-1] < timed[0]:
+        raise AssertionError(f"train {rec['dtype']}: the 10th timed loss is not below the 1st: {timed}")
+    return rec, model, state, step, gen
+
+
+def _slim_state_dict(model, seed):
+    """Every entry of ``model``'s state dict drawn with numpy from ``seed``
+    (the CPU tests' draw: fan-in normal convs, BN statistics away from the
+    identity, the class head's final bias near the prior)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("running_var") or (k.endswith("weight") and "bn" in k.split(".")[-2]):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith("fusion_weights"):
+            a = rng.uniform(0.2, 1.5, shape)
+        elif k.endswith("weight") and len(shape) == 4:
+            a = rng.normal(0, (1.5 / int(np.prod(shape[1:]))) ** 0.5, shape)
+        elif k == "class_net.net.final.pointwise.bias":
+            a = rng.normal(-4.6, 0.3, shape)
+        else:
+            a = rng.normal(0, 0.2, shape)
+        out[k] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+def _train_card_vs_cpu(et, devices=("cuda", "cpu")):
+    """One f32 step (TF32 off) of the slim model (tests/conftest.py's
+    ``slim_d0``: B0, BiFPN and heads at width 16, depth 2, 128 px, 6
+    classes; survival 1.0), the same numpy-drawn weights on the card and the
+    CPU: loss within 1e-5 relative, the gradient (Adam's first moment after
+    one step, 0.1 g) within 1e-4 of each leaf's largest plus 1e-6 of the
+    model's largest, BN statistics within 1e-5: the tier-1 tolerances."""
+    import dataclasses
+
+    import torch
+
+    cfg = dataclasses.replace(et.ModelConfig.for_phi(0, num_classes=6, image_size=128),
+                              bifpn_width=16, bifpn_depth=2, head_depth=2, survival_prob=1.0)
+    weights = _slim_state_dict(et.EfficientDet(cfg), seed=0)
+    batch = _bench_train_batch(128, 2, seed=4)
+    batch["gt_labels"] = np.where(batch["gt_labels"] >= 0, batch["gt_labels"] % 6, -1).astype(np.int32)
+    batch["gt_boxes"] = np.clip(batch["gt_boxes"], 0, 127)
+    tc = et.TrainConfig(batch_size=2)
+    out = {}
+    for dev in devices:
+        model = et.EfficientDet(cfg)
+        model.load_state_dict(weights)
+        model.to(dev)
+        state = et.create_train_state(model, tc, device=dev)
+        state, m = et.make_train_step(model, tc, device=dev)(state, batch)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in state.opt_state["mu"].items()},
+                    {k: v.detach().cpu() for k, v in state.batch_stats.items()})
+    (mg, mug, sg), (mc, muc, sc) = out[devices[0]], out[devices[1]]
+    loss_rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in ("loss", "cls_loss", "box_loss")}
+    noise = 1e-6 * max(float(v.abs().max()) for v in muc.values())
+    grad_worst, grad_leaf = 0.0, None
+    for k, want in muc.items():
+        err = float((mug[k] - want).abs().max()) / (1e-4 * float(want.abs().max()) + noise)
+        if err > grad_worst:
+            grad_worst, grad_leaf = err, k
+    stat_worst = max(float(((sg[k] - v).abs() / (1e-5 * (1 + v.abs()))).max()) for k, v in sc.items())
+    rec = {"model": "slim D0: B0, BiFPN/heads width 16 depth 2, 128 px, 6 classes, survival 1.0",
+           "batch": 2, "dtype": "float32, TF32 off", "loss_cuda": mg["loss"], "loss_cpu": mc["loss"],
+           "loss_rel_err": loss_rel, "grad_norm_cuda": mg["grad_norm"], "grad_norm_cpu": mc["grad_norm"],
+           "grad_err_over_tol": grad_worst, "grad_worst_leaf": grad_leaf,
+           "bn_stats_err_over_tol": stat_worst}
+    if max(loss_rel.values()) > 1e-5 or grad_worst > 1.0 or stat_worst > 1.0:
+        raise AssertionError(f"train: card and CPU steps differ: {rec}")
+    return rec
+
+
+def phase_train(et, kernels, card, profile_dir):
+    """The training step at D0@512 batch 64, f32 (TF32 off) and bf16; the
+    card against the CPU on the slim model; the trained weights through
+    CheckpointManager, Predictor.from_checkpoint and the main path."""
+    import shutil
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host = _bench_train_batch(TRAIN_SIZE, TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    runs = {}
+    f32, model, state, step, gen = _train_timed(et, torch.float32, batch, kernels, card)
+    runs["f32"] = f32
+    profile = None
+    if profile_dir:
+        holder = {"state": state}
+
+        def one_step():
+            holder["state"], _ = step(holder["state"], batch, gen)
+
+        profile = _profile(one_step, profile_dir, f32["ms_per_step"], calls=2,
+                           trace="train_trace.json.gz")
+        state = holder["state"]
+    runs["bf16"] = _train_timed(et, torch.bfloat16, batch, kernels, card)[0]
+    torch.cuda.empty_cache()
+    # what remat (remat_scope "full", every stage) costs in time and saves in memory
+    runs["f32_remat"] = _train_timed(et, torch.float32, batch, kernels, card, remat=True)[0]
+    torch.cuda.empty_cache()
+    for rec in runs.values():
+        emit({"phase": "train_run", **rec})
+
+    vs_cpu = _train_card_vs_cpu(et)
+
+    # the trained weights: CheckpointManager -> Predictor.from_checkpoint
+    # inside the checkout, in the kernels' build directory (not committed)
+    ckpt = os.path.join(ROOT, "efficientdet_tpu_torch", "_build", "smoke_checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        mgr = et.CheckpointManager(ckpt, keep=1)
+        mgr.save(state.step, state, {"loss": runs["f32"]["loss"][-1]})
+        rng = np.random.RandomState(6)
+        img = rng.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+        loaded = et.Predictor.from_checkpoint(ckpt, phi=0, dtype="f32", score_threshold=0.0)
+        memory = et.Predictor(phi=0, dtype="f32", score_threshold=0.0,
+                              variables={k: v.detach() for k, v in model.state_dict().items()})
+        replay, eager, in_memory = loaded(img), loaded.eager(img), memory.eager(img)
+        if not all(np.array_equal(a, b) and np.array_equal(a, c)
+                   for a, b, c in zip(replay, eager, in_memory)) or not len(replay[1]):
+            raise AssertionError("train: the checkpoint's Predictor differs from the trained model")
+        if not _valid(replay, 90):
+            raise AssertionError("train: invalid detections from the trained weights")
+        restored = mgr.restore(et.create_train_state(loaded.model, et.TrainConfig(
+            batch_size=TRAIN_BATCH, max_gt_boxes=TRAIN_MAX_GT)))
+        if restored.step != state.step or restored.opt_state["count"] != state.opt_state["count"]:
+            raise AssertionError("train: the restored state's counts differ")
+        del loaded, memory, restored
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    # the trained weights through the main path: fused, both kernels
+    fused = et.fuse_for_inference(model.eval())
+    images = batch["images"][:CHECK_BATCH]
+    for fn in kernels.values():
+        fn.launches = 0
+    dets = et.predict_pipeline(fused, images)
+    torch.cuda.synchronize()
+    main_launches = _launch_counts(kernels)
+    n = _check_detections(dets, 90, CHECK_BATCH)
+    if main_launches["head_pointwise"] != 2 or main_launches["nms_suppress"] != 1:
+        raise AssertionError(f"train: the trained model's main path missed a kernel: {main_launches}")
+    rec = {"phase": "train", "model": "D0@512, 90 classes, random weights from seed 0",
+           "config": "TrainConfig defaults (Adam 1e-3, per-level loss), batch 64, "
+                     "tools/bench_train.py's batch (seed 0, 12 boxes an image)",
+           "f32": {k: runs["f32"][k] for k in ("img_s", "ms_per_step", "peak_mem_gb", "remat", "tf32")},
+           "bf16": {k: runs["bf16"][k] for k in ("img_s", "ms_per_step", "peak_mem_gb", "remat", "tf32")},
+           "f32_remat": {k: runs["f32_remat"][k]
+                         for k in ("img_s", "ms_per_step", "peak_mem_gb", "remat", "tf32")},
+           "launches_in_training": {d: runs[d]["kernel_launches"] for d in runs},
+           "card_vs_cpu": vs_cpu, "checkpoint": "Predictor.from_checkpoint replay == eager() == "
+           "the in-memory model", "trained_main_path_launches": main_launches,
+           "trained_num_valid": [int(v) for v in n], "card": card}
+    emit(rec)
+    if profile:
+        emit({"phase": "train_profile", "dtype": "float32", "batch": TRAIN_BATCH, **profile})
+    del model, state, step, fused, batch
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -1131,6 +1495,11 @@ def main() -> int:
         tk, tf, chains[0]["baseline_ms"], ms_per_call)
     phase_predictor(et, nk, card)
     phase_serve(et, hk, nk, card)
+    phase_train(et, {"head_pointwise": hk.head_pointwise_anchor_major,
+                     "nms_suppress": nk.suppression_keep_mask,
+                     "fused_mbconv_packed": mk.packed_mbconv, "fused_mbconv_rp": mk.packed_mbconv_rp,
+                     "fused_mbconv_nhwc": mk.fused_mbconv_nhwc, "tap_floor": tk.tap_floor},
+                card, args.profile_dir)
 
     def total(key):
         return sum(t[key] for t in head_t)

@@ -5,7 +5,19 @@ of it and no JAX. Its kernels (``csrc/``) are CUDA C++ for sm_90a, built with
 nvcc at first use; on CPU tensors their plain PyTorch versions run instead.
 """
 
-from .configs import AnchorConfig, BlockConfig, EvalConfig, ModelConfig
+from .configs import AnchorConfig, BlockConfig, EvalConfig, ModelConfig, TrainConfig
+from .anchors import (
+    anchor_targets,
+    anchor_targets_batch,
+    anchor_targets_batch_compact,
+    anchor_targets_compact,
+    anchors_for_shape,
+    clip_boxes,
+    decode_boxes,
+    encode_boxes,
+    iou_matrix,
+)
+from .losses import detection_loss, focal_loss, smooth_l1_loss
 from .models.detector import (
     EfficientDet,
     build_efficientdet,
@@ -24,10 +36,16 @@ from .models.detector import (
 from .ops.preprocess import preprocess_image
 from .predict import Predictor
 from .serve import BatchingPredictor, PredictorOverloaded
+from .train_lib import TrainState, create_train_state, make_eval_loss_fn, make_train_step
+from .utils.checkpoint import CheckpointManager
 
 __all__ = [
-    "AnchorConfig", "BlockConfig", "EvalConfig", "ModelConfig", "EfficientDet",
-    "build_efficientdet", "fuse_for_inference", "make_predict_fn",
+    "AnchorConfig", "BlockConfig", "EvalConfig", "ModelConfig", "TrainConfig",
+    "anchor_targets", "anchor_targets_batch", "anchor_targets_batch_compact",
+    "anchor_targets_compact", "anchors_for_shape", "clip_boxes", "decode_boxes",
+    "encode_boxes", "iou_matrix", "detection_loss", "focal_loss", "smooth_l1_loss",
+    "EfficientDet", "build_efficientdet", "fuse_for_inference", "make_predict_fn",
     "predict_pipeline", "preprocess_image", "Predictor", "BatchingPredictor",
-    "PredictorOverloaded",
+    "PredictorOverloaded", "TrainState", "create_train_state", "make_eval_loss_fn",
+    "make_train_step", "CheckpointManager",
 ] + [f"efficientdet_d{i}" for i in range(8)]

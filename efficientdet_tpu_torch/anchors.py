@@ -1,9 +1,10 @@
-"""Anchor generation and box decoding for the PyTorch port.
+"""Anchors, box coding and the training targets for the PyTorch port.
 
 Anchors for an image size are made once on the host with numpy (the same
 arithmetic as the JAX package, so the tables are identical) and moved to the
-device by the caller. IoU, decode and clip are torch functions in float32.
-All boxes are ``[x1, y1, x2, y2]`` in pixels.
+device by the caller. IoU, encode, decode, clip and the anchor-target
+assignment are torch functions in float32 on the anchors' device. All boxes
+are ``[x1, y1, x2, y2]`` in pixels.
 """
 
 from __future__ import annotations
@@ -90,6 +91,24 @@ def iou_matrix(boxes: torch.Tensor, query_boxes: torch.Tensor) -> torch.Tensor:
     )
 
 
+def encode_boxes(gt_boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Ground-truth corners -> normalised regression targets (..., 4)."""
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    t = torch.stack(
+        [
+            (gt_boxes[..., 0] - anchors[..., 0]) / aw,
+            (gt_boxes[..., 1] - anchors[..., 1]) / ah,
+            (gt_boxes[..., 2] - anchors[..., 2]) / aw,
+            (gt_boxes[..., 3] - anchors[..., 3]) / ah,
+        ],
+        dim=-1,
+    )
+    mean = capturable_constant(BOX_MEAN, t.device).to(t.dtype)
+    std = capturable_constant(BOX_STD, t.device).to(t.dtype)
+    return (t - mean) / std
+
+
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     """Regression outputs (..., 4) -> boxes, in float32."""
     deltas = deltas.float()
@@ -119,3 +138,103 @@ def clip_boxes(boxes: torch.Tensor, image_hw: Tuple[int, int]) -> torch.Tensor:
     x2 = boxes[..., 2].clamp(0, w - 1)
     y2 = boxes[..., 3].clamp(0, h - 1)
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Anchor-target assignment
+# ---------------------------------------------------------------------------
+
+
+def anchor_targets_compact(
+    anchors: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    positive_iou: float = 0.5,
+    negative_iou: float = 0.4,
+):
+    """Assign targets to anchors, on the anchors' device.
+
+    anchors: (A, 4). gt_boxes: (..., G, 4), zero padded; a row whose label
+    is negative is padding and never matches. gt_labels: (..., G) integers,
+    -1 for padding. Leading dimensions (a batch) broadcast.
+
+    Each anchor matches its highest-IoU box (the first of equals); padding
+    rows count as IoU -1. IoU >= ``positive_iou`` is positive, IoU in
+    [``negative_iou``, ``positive_iou``) ignored, the rest negative.
+
+    Returns ``cls_labels`` (..., A) int32, the matched class on positives
+    and -1 elsewhere; ``box_targets`` (..., A, 4) float32 encoded targets,
+    0 off the positives; ``anchor_state`` (..., A) float32 in {-1 ignore,
+    0 negative, 1 positive}. The matched row is a gather where the JAX
+    package contracts a one-hot matrix: in float32 both select it exactly.
+    """
+    anchors = anchors.float()
+    gt_boxes = gt_boxes.float()
+    valid = gt_labels >= 0  # (..., G)
+    ious = iou_matrix(anchors, gt_boxes)  # (..., A, G)
+    ious = torch.where(valid.unsqueeze(-2), ious, torch.full_like(ious, -1.0))
+    best_gt = torch.argmax(ious, dim=-1)  # (..., A), the first index of the max
+    best_iou = torch.amax(ious, dim=-1)
+    positive = best_iou >= positive_iou
+    ignore = (best_iou >= negative_iou) & ~positive
+    anchor_state = torch.where(
+        positive, 1.0, torch.where(ignore, -1.0, 0.0)
+    ).to(torch.float32)
+    matched_boxes = torch.gather(
+        gt_boxes.expand(best_gt.shape[:-1] + gt_boxes.shape[-2:]), -2,
+        best_gt.unsqueeze(-1).expand(best_gt.shape + (4,)),
+    )  # (..., A, 4)
+    matched_labels = torch.gather(
+        gt_labels.expand(best_gt.shape[:-1] + gt_labels.shape[-1:]), -1, best_gt
+    )
+    cls_labels = torch.where(positive, matched_labels, -1).to(torch.int32)
+    box_targets = encode_boxes(matched_boxes, anchors)
+    box_targets = torch.where(positive.unsqueeze(-1), box_targets, 0.0)
+    return cls_labels, box_targets, anchor_state
+
+
+def anchor_targets(
+    anchors: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    num_classes: int,
+    positive_iou: float = 0.5,
+    negative_iou: float = 0.4,
+):
+    """:func:`anchor_targets_compact` with (..., A, C) float32 one-hot class
+    targets (all zero off the positives) in place of the labels."""
+    cls_labels, box_targets, anchor_state = anchor_targets_compact(
+        anchors, gt_boxes, gt_labels, positive_iou, negative_iou
+    )
+    cls_targets = torch.nn.functional.one_hot(
+        torch.where(cls_labels < 0, num_classes, cls_labels).long(), num_classes + 1
+    )[..., :num_classes].to(torch.float32)
+    return cls_targets, box_targets, anchor_state
+
+
+def anchor_targets_batch(
+    anchors: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    num_classes: int,
+    positive_iou: float = 0.5,
+    negative_iou: float = 0.4,
+):
+    """:func:`anchor_targets` over a batch: gt_boxes (B, G, 4), gt_labels (B, G)."""
+    if gt_boxes.dim() != 3:
+        raise ValueError(f"expected (B, G, 4) boxes, got shape {tuple(gt_boxes.shape)}")
+    return anchor_targets(anchors, gt_boxes, gt_labels, num_classes, positive_iou, negative_iou)
+
+
+def anchor_targets_batch_compact(
+    anchors: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    positive_iou: float = 0.5,
+    negative_iou: float = 0.4,
+):
+    """:func:`anchor_targets_compact` over a batch: (cls_labels (B, A),
+    box_targets (B, A, 4), anchor_state (B, A)), the train step's form."""
+    if gt_boxes.dim() != 3:
+        raise ValueError(f"expected (B, G, 4) boxes, got shape {tuple(gt_boxes.shape)}")
+    return anchor_targets_compact(anchors, gt_boxes, gt_labels, positive_iou, negative_iou)

@@ -3,7 +3,7 @@
 A pure-Python copy of the JAX package's model, anchor and evaluation
 configuration, kept field for field so that a configuration names the same
 detector in both packages (tests/test_torch_configs.py holds them equal for
-phi 0-7). Training configuration arrives with the training slice.
+phi 0-7), and of its training configuration (``TrainConfig``).
 """
 
 from __future__ import annotations
@@ -130,6 +130,15 @@ class ModelConfig:
     max_level: int = 7
     anchor: AnchorConfig = AnchorConfig()
     survival_prob: float = 0.8  # drop-connect keep prob at the deepest block
+    # Recompute blocks in the backward pass (torch.utils.checkpoint): about
+    # one more forward of FLOPs for the activation memory of training.
+    remat: bool = False
+    # What remat covers: "full" (backbone + BiFPN + heads), "backbone"
+    # (MBConv blocks only) or "fpn" (BiFPN layers + heads only).
+    remat_scope: str = "full"
+    # Backbone stages (1-based) above this are not recomputed even when remat
+    # covers the backbone: stride-16/32 activations are cheap to keep.
+    remat_max_stage: int = 7
     bn_momentum: float = 0.99
     bn_epsilon: float = 1e-3
 
@@ -192,6 +201,62 @@ class ModelConfig:
             h * w * self.num_anchors_per_cell
             for h, w in self.feature_shapes(image_size)
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters; fields and defaults equal the JAX package's."""
+
+    batch_size: int = 8
+    learning_rate: float = 1e-3
+    epochs: int = 50
+    steps_per_epoch: int = 10000
+    # Loss.
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    huber_sigma: float = 3.0
+    # Anchor matching: IoU >= positive_iou positive, < negative_iou negative,
+    # ignored between.
+    positive_iou: float = 0.5
+    negative_iou: float = 0.4
+    max_gt_boxes: int = 100
+    # Optimisation extras, off by default.
+    weight_decay: float = 0.0
+    grad_clip_norm: float = 0.0
+    # > 1: accumulate the mean gradient of k steps before one Adam update
+    # (optax.MultiSteps in the JAX package).
+    grad_accum_steps: int = 1
+    ema_decay: float = 0.0
+    freeze_backbone: bool = False
+    # Kept so that the configuration equals the JAX package's (there it
+    # picks optax's fused layout); the port's Adam always runs torch's
+    # multi-tensor (foreach) operations, so either value takes the same step.
+    fused_optimizer: bool = False
+    # 'constant' (with linear warm-up when warmup_steps > 0) or 'cosine'
+    # (warm-up, then cosine decay to 0 over epochs * steps_per_epoch).
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    # Loss from the heads' per-level outputs instead of the concatenated
+    # (B, A_total, C) tensors: the same math without the concatenation.
+    per_level_loss: bool = True
+    # Random affine and colour augmentation inside the step (the JAX
+    # package's ops/augment.py); not ported yet.
+    device_augment: bool = False
+    device_augment_color: bool = True
+
+
+def train_config_from_snapshot(saved_cfg) -> "TrainConfig":
+    """The TrainConfig a snapshot was written with.
+
+    ``saved_cfg`` is the snapshot's ``train_config.json`` as a dict (its
+    ``"train"`` entry holds the fields), or None for a snapshot without one.
+    ``fused_optimizer`` defaults to False here, as in the JAX package, where
+    snapshots from before the field existed were written leaf-wise; in the
+    port the field does not change the step.
+    """
+    if saved_cfg is None:
+        return TrainConfig(fused_optimizer=False)
+    return TrainConfig(**{"fused_optimizer": False, **saved_cfg["train"]})
 
 
 @dataclasses.dataclass(frozen=True)

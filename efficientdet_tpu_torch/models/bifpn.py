@@ -1,4 +1,4 @@
-"""BiFPN with fast-normalised weighted fusion, inference forward, NCHW.
+"""BiFPN with fast-normalised weighted fusion, NCHW.
 
 Counterpart of the JAX package's ``models/bifpn.py``. Per layer (paper
 Fig. 2): the first layer builds P3..P5 from 1x1 conv+BN of C3..C5 (P4/P5 get
@@ -10,7 +10,8 @@ of conv+BN(C5), P7 = maxpool of P6; then
 
 with F = relu-weighted fusion (eps 1e-4; each ``w_i / norm`` is cast to the
 input dtype) -> swish -> SeparableConv 3x3 -> BN. ``weighted=False`` (D6/D7)
-sums the inputs instead.
+sums the inputs instead. With ``remat`` each layer is recomputed in the
+backward pass (models/remat.py).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from torch import nn
 from ..ops.resample import downsample_maxpool, upsample_to
 from .conv import Conv2d, SeparableConv
 from .normalization import TpuBatchNorm
+from .remat import remat as _remat
 
 FUSION_EPS = 1e-4
 
@@ -120,9 +122,10 @@ class BiFPN(nn.Module):
 
     def __init__(self, features: int, depth: int, in_channels,
                  weighted: bool = True, bn_epsilon: float = 1e-3,
-                 fuse_bn: bool = False):
+                 fuse_bn: bool = False, remat: bool = False):
         super().__init__()
         self.depth = depth
+        self.remat = remat
         for i in range(depth):
             self.add_module(f"layer{i}", BiFPNLayer(
                 features, first=(i == 0), in_channels=in_channels,
@@ -131,5 +134,6 @@ class BiFPN(nn.Module):
 
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         for i in range(self.depth):
-            feats = getattr(self, f"layer{i}")(feats)
+            layer = getattr(self, f"layer{i}")
+            feats = _remat(layer, feats) if self.remat else layer(feats)
         return list(feats)

@@ -13,6 +13,7 @@ kernels' plain versions stand in for them.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -36,6 +37,7 @@ from .bifpn import BiFPN
 from .conv import Conv2d
 from .efficientnet import EfficientNet
 from .heads import BoxNet, ClassNet, prior_prob_bias
+from .normalization import TpuBatchNorm
 
 FRONT_ENDS = ("anchor_major", "concat", "pixel_gather")
 
@@ -57,7 +59,13 @@ def _tap_channels(backbone: str) -> Tuple[int, int, int]:
 
 
 class EfficientDet(nn.Module):
-    """Backbone -> BiFPN -> shared heads, on NHWC normalised images."""
+    """Backbone -> BiFPN -> shared heads, on NHWC normalised images.
+
+    ``train()`` puts the BNs on batch statistics and turns stochastic depth
+    on, as flax's ``train=True``; with ``config.freeze_bn`` the BNs stay on
+    their running statistics. ``config.remat`` recomputes the blocks that
+    ``remat_scope`` and ``remat_max_stage`` name in the backward pass.
+    """
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32,
                  fuse_bn: bool = False):
@@ -67,19 +75,33 @@ class EfficientDet(nn.Module):
         self.fuse_bn = fuse_bn
         self._anchor_cache = {}
         eps = config.bn_epsilon
-        self.backbone = EfficientNet(config.backbone, eps, fuse_bn)
+        remat_backbone = config.remat and config.remat_scope in ("full", "backbone")
+        remat_fpn = config.remat and config.remat_scope in ("full", "fpn")
+        self.backbone = EfficientNet(config.backbone, eps, fuse_bn, config.survival_prob,
+                                     remat_backbone, config.remat_max_stage)
         self.bifpn = BiFPN(
             config.bifpn_width, config.bifpn_depth, _tap_channels(config.backbone),
-            config.weighted_bifpn, eps, fuse_bn,
+            config.weighted_bifpn, eps, fuse_bn, remat_fpn,
         )
         a, levels = config.num_anchors_per_cell, config.num_levels
         self.class_net = ClassNet(
             config.bifpn_width, config.head_depth, config.num_classes, a, levels,
-            bn_epsilon=eps, fuse_bn=fuse_bn,
+            bn_epsilon=eps, fuse_bn=fuse_bn, remat=remat_fpn,
         )
         self.box_net = BoxNet(
-            config.bifpn_width, config.head_depth, a, levels, eps, fuse_bn,
+            config.bifpn_width, config.head_depth, a, levels, eps, fuse_bn, remat_fpn,
         )
+        for mod in self.modules():
+            if isinstance(mod, TpuBatchNorm):
+                mod.momentum = config.bn_momentum
+
+    def train(self, mode: bool = True) -> "EfficientDet":
+        super().train(mode)
+        if mode and self.config.freeze_bn:
+            for mod in self.modules():
+                if isinstance(mod, TpuBatchNorm):
+                    mod.train(False)
+        return self
 
     def anchors(self, size: int, device: torch.device) -> torch.Tensor:
         """The (A_total, 4) anchors of a size x size image, made once per
@@ -91,14 +113,17 @@ class EfficientDet(nn.Module):
             ).to(device)
         return self._anchor_cache[key]
 
-    def features(self, images: torch.Tensor):
+    def features(self, images: torch.Tensor, generator: torch.Generator | None = None):
         """(B, S, S, 3) normalised -> BiFPN outputs [P3..P7], NCHW."""
         x = images.to(self.dtype).permute(0, 3, 1, 2)
-        return self.bifpn(list(self.backbone(x)))
+        return self.bifpn(list(self.backbone(x, generator)))
 
     def forward(self, images: torch.Tensor, anchor_major: bool = False,
-                raw_levels: bool = False):
+                raw_levels: bool = False, generator: torch.Generator | None = None):
         """images (B, S, S, 3) normalised -> (class out, box out).
+
+        ``generator``: stochastic depth's source in training (see
+        models/efficientnet.py).
 
         Default: (cls_logits (B, A, C), box_deltas (B, A, 4)).
         ``anchor_major=True``: ((z, amax_img, hws), (zb, hws)), the input of
@@ -106,7 +131,7 @@ class EfficientDet(nn.Module):
         ``raw_levels=True``: per-level NHWC lists, (B, Hl, Wl, A*C) logits
         and (B, Hl, Wl, A*4) deltas, the input of the pixel-gather front end.
         """
-        feats = self.features(images)
+        feats = self.features(images, generator)
         return (self.class_net(feats, anchor_major, raw_levels),
                 self.box_net(feats, anchor_major, raw_levels))
 
@@ -142,16 +167,26 @@ def build_efficientdet(
     phi: int,
     num_classes: int = 90,
     weighted_bifpn: bool | None = None,
+    freeze_bn: bool = False,
     dtype: torch.dtype = torch.float32,
     image_size: int | None = None,
+    remat: bool = False,
+    remat_scope: str = "full",
+    remat_max_stage: int = 7,
     device=None,
     seed: int = 0,
 ) -> Tuple[EfficientDet, ModelConfig]:
-    """Build EfficientDet-D``phi`` with random weights from ``seed``."""
+    """Build EfficientDet-D``phi`` with random weights from ``seed``, in
+    eval mode (``model.train()`` for training)."""
+    if remat_scope not in ("full", "backbone", "fpn"):
+        raise ValueError(f"remat_scope must be full|backbone|fpn, got {remat_scope!r}")
     config = ModelConfig.for_phi(
         phi, num_classes=num_classes, weighted_bifpn=weighted_bifpn,
-        image_size=image_size,
+        freeze_bn=freeze_bn, image_size=image_size,
     )
+    if remat:
+        config = dataclasses.replace(config, remat=True, remat_scope=remat_scope,
+                                     remat_max_stage=remat_max_stage)
     device = resolve_device(device)
     model = init_weights(EfficientDet(config, dtype), seed)
     return model.to(device).eval(), config

@@ -1,11 +1,16 @@
-"""EfficientNet-B0..B7 backbone, inference forward, NCHW inside.
+"""EfficientNet-B0..B7 backbone, NCHW inside.
 
 Counterpart of the JAX package's ``models/efficientnet.py``: stem 3x3/s2
 conv, 7 MBConv stages with compound ``round_filters``/``round_repeats``
 scaling, squeeze-excite ratio 0.25, swish, and the C3/C4/C5 taps after stages
 3, 5 and 7. Submodule names are the flax ones, so utils/convert.py maps a
-flax variables tree onto this module key for key. Stochastic depth is a
-training feature and is off here; training arrives with a later slice.
+flax variables tree onto this module key for key.
+
+In training mode a residual block drops its branch per sample (stochastic
+depth): a (B, 1, 1, 1) Bernoulli keep mask divided by the block's survival
+probability ``1 - (1 - survival_prob) * idx / total``. The masks are drawn
+from the caller's ``torch.Generator`` before the block runs, so a block
+recomputed by remat (``remat_max_stage``) sees the same mask.
 
 ``fuse_bn=True`` builds the inference-folded variant: every conv carries a
 bias and no BatchNorm exists (utils/fold_bn.py makes its weights).
@@ -28,6 +33,7 @@ from ..configs import (
 )
 from .conv import Conv2d
 from .normalization import TpuBatchNorm
+from .remat import remat
 
 
 def _bn(channels: int, eps: float, fuse_bn: bool) -> nn.Module:
@@ -53,8 +59,9 @@ class MBConvBlock(nn.Module):
 
     def __init__(self, config: BlockConfig, input_filters: int,
                  output_filters: int, strides: int, bn_epsilon: float = 1e-3,
-                 fuse_bn: bool = False):
+                 fuse_bn: bool = False, survival_prob: float = 1.0):
         super().__init__()
+        self.survival_prob = survival_prob
         filters = input_filters * config.expand_ratio
         self.has_expand = config.expand_ratio != 1
         if self.has_expand:
@@ -74,7 +81,9 @@ class MBConvBlock(nn.Module):
         self.project_bn = _bn(output_filters, bn_epsilon, fuse_bn)
         self.residual = strides == 1 and input_filters == output_filters
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None) -> torch.Tensor:
+        """``keep``: the (B, 1, 1, 1) stochastic-depth mask of a residual
+        block in training, or None."""
         inputs = x
         if self.has_expand:
             x = F.silu(self.expand_bn(self.expand_conv(x)))
@@ -83,6 +92,8 @@ class MBConvBlock(nn.Module):
             x = self.se(x)
         x = self.project_bn(self.project_conv(x))
         if self.residual:
+            if keep is not None:
+                x = x * keep / self.survival_prob
             x = x + inputs
         return x
 
@@ -91,10 +102,14 @@ class EfficientNet(nn.Module):
     """Backbone (B, 3, S, S) -> (C3, C4, C5), NCHW, in the input's dtype."""
 
     def __init__(self, model_name: str = "efficientnet-b0",
-                 bn_epsilon: float = 1e-3, fuse_bn: bool = False):
+                 bn_epsilon: float = 1e-3, fuse_bn: bool = False,
+                 survival_prob: float = 0.8, remat: bool = False,
+                 remat_max_stage: int = 7):
         super().__init__()
         width, depth, _ = EFFICIENTNET_PARAMS[model_name]
         table = BACKBONE_BLOCK_TABLES[model_name]
+        total = sum(round_repeats(c.num_repeat, depth) for c in table)
+        self.remat_blocks = set()
         stem = round_filters(table[0].input_filters, width)
         self.stem_conv = Conv2d(3, stem, 3, stride=2, bias=fuse_bn)
         self.stem_bn = _bn(stem, bn_epsilon, fuse_bn)
@@ -105,6 +120,7 @@ class EfficientNet(nn.Module):
             out_f = round_filters(cfg.output_filters, width)
             for r in range(round_repeats(cfg.num_repeat, depth)):
                 name = f"stage{stage_idx + 1}_block{r}"
+                idx = len(self.block_names)
                 self.add_module(name, MBConvBlock(
                     cfg,
                     input_filters=in_f if r == 0 else out_f,
@@ -112,17 +128,40 @@ class EfficientNet(nn.Module):
                     strides=cfg.strides if r == 0 else 1,
                     bn_epsilon=bn_epsilon,
                     fuse_bn=fuse_bn,
+                    survival_prob=1.0 - (1.0 - survival_prob) * idx / total,
                 ))
                 self.block_names.append(name)
+                if remat and stage_idx + 1 <= remat_max_stage:
+                    self.remat_blocks.add(name)
             tap = {2: "C3", 4: "C4", 6: "C5"}.get(stage_idx)
             if tap:
                 self.tap_after[self.block_names[-1]] = tap
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def keep_masks(self, batch: int, device, generator=None):
+        """The stochastic-depth keep masks of one forward, by block name:
+        float32 (B, 1, 1, 1) in {0, 1}, drawn in block order for the
+        residual blocks whose survival is below 1; empty in eval mode."""
+        masks = {}
+        for name in self.block_names:
+            block = getattr(self, name)
+            if self.training and block.residual and block.survival_prob < 1.0:
+                masks[name] = torch.empty((batch, 1, 1, 1), device=device).bernoulli_(
+                    block.survival_prob, generator=generator)
+        return masks
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``generator``: where stochastic depth draws its masks in training
+        (torch's default generator of the device when None)."""
+        masks = self.keep_masks(x.shape[0], x.device, generator)
         x = F.silu(self.stem_bn(self.stem_conv(x)))
         taps = {}
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            keep = masks.get(name)
+            if keep is not None:
+                keep = keep.to(x.dtype)
+            x = remat(block, x, keep) if name in self.remat_blocks else block(x, keep)
             if name in self.tap_after:
                 taps[self.tap_after[name]] = x
         return taps["C3"], taps["C4"], taps["C5"]

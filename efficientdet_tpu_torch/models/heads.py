@@ -1,4 +1,4 @@
-"""Shared class/box prediction heads, inference forward, NCHW inside.
+"""Shared class/box prediction heads, NCHW inside.
 
 Counterpart of the JAX package's ``models/heads.py``. Depth-``d`` stacks of
 SeparableConv 3x3 whose weights are shared across P3..P7, with per-level
@@ -20,6 +20,10 @@ Three output paths:
   depthwise; its output becomes NHWC pixel rows ``b*H*W + p``, the rows of
   all levels are concatenated, and ONE launch of the head pointwise kernel
   (ops/head_kernel.py) computes the final 1x1 for every level.
+
+Training runs the first two paths, whose final layer is the plain conv; with
+``remat`` the whole head is recomputed in the backward pass there
+(models/remat.py). The anchor-major path is inference only.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from torch import nn
 from ..ops.head_kernel import head_pointwise_anchor_major
 from .conv import Conv2d, SeparableConv
 from .normalization import TpuBatchNorm
+from .remat import remat as _remat
 
 
 def prior_prob_bias(prior: float = 0.01) -> float:
@@ -120,19 +125,26 @@ class _Head(nn.Module):
         return z, torch.cat(parts, dim=1), tuple(hws)
 
 
+def _run_head(head: _Head, feats, anchor_major: bool, raw_levels: bool, remat: bool):
+    if remat and not anchor_major:
+        return _remat(head, list(feats), False, raw_levels)
+    return head(feats, anchor_major, raw_levels)
+
+
 class ClassNet(nn.Module):
     """Classification head -> (B, A, num_classes) logits."""
 
     def __init__(self, width: int, depth: int, num_classes: int,
                  num_anchors: int = 9, num_levels: int = 5, prior: float = 0.01,
-                 bn_epsilon: float = 1e-3, fuse_bn: bool = False):
+                 bn_epsilon: float = 1e-3, fuse_bn: bool = False, remat: bool = False):
         super().__init__()
         self.prior = prior
+        self.remat = remat
         self.net = _Head(width, depth, num_classes, num_anchors, num_levels,
                          True, bn_epsilon, fuse_bn)
 
     def forward(self, feats, anchor_major: bool = False, raw_levels: bool = False):
-        return self.net(feats, anchor_major, raw_levels)
+        return _run_head(self.net, feats, anchor_major, raw_levels, self.remat)
 
 
 class BoxNet(nn.Module):
@@ -140,10 +152,11 @@ class BoxNet(nn.Module):
 
     def __init__(self, width: int, depth: int, num_anchors: int = 9,
                  num_levels: int = 5, bn_epsilon: float = 1e-3,
-                 fuse_bn: bool = False):
+                 fuse_bn: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.net = _Head(width, depth, 4, num_anchors, num_levels,
                          False, bn_epsilon, fuse_bn)
 
     def forward(self, feats, anchor_major: bool = False, raw_levels: bool = False):
-        return self.net(feats, anchor_major, raw_levels)
+        return _run_head(self.net, feats, anchor_major, raw_levels, self.remat)

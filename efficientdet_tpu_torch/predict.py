@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``predict.py``::
 
     predictor = Predictor(phi=0, num_classes=90)          # random weights from ``seed``
-    predictor = Predictor.from_checkpoint(path, phi=0)    # a utils/checkpoint.save_params file
+    predictor = Predictor.from_checkpoint(path, phi=0)    # a save_params file or a
+                                                          # CheckpointManager directory
     boxes, scores, classes = predictor(image)             # one RGB uint8 image, any shape
 
 The whole pipeline (aspect-preserving resize, pad to square, normalise,
@@ -15,6 +16,12 @@ program per source shape, the card replays one CUDA graph per source shape
 at most 8 (the oldest goes first). With ``device="cpu"`` every call runs
 eagerly, on the kernels' plain versions.
 
+Threads may share one instance, as they may share the JAX package's jitted
+function: one lock per instance covers a call's cache lookup (and capture or
+eviction), copy-in, replay and copy-out. It is one lock for every shape, not
+one a shape, because all of an instance's graphs share one memory pool and a
+replay may overwrite another shape's outputs.
+
 CLI::
 
     python -m efficientdet_tpu_torch.predict --phi 0 --checkpoint params.pt \\
@@ -24,6 +31,8 @@ CLI::
 from __future__ import annotations
 
 import argparse
+import os
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -33,7 +42,7 @@ from .configs import EvalConfig
 from .models.detector import build_efficientdet
 from .ops.nms import filter_detections_from_logits
 from .ops.preprocess import preprocess_image
-from .utils.checkpoint import load_params
+from .utils.checkpoint import CheckpointManager, load_params
 from .utils.cuda_graph import GraphedCall
 
 MAX_CACHED_SHAPES = 8  # the JAX package's bound on its per-shape program cache
@@ -83,13 +92,21 @@ class Predictor:
         # share one memory pool, made with the first of them
         self._run_cache: dict = {}
         self._pool = None
+        self._lock = threading.Lock()
 
     @classmethod
     def from_checkpoint(cls, path: str, **kwargs) -> "Predictor":
         """A Predictor whose weights come from a params-only checkpoint
-        (``utils/checkpoint.save_params``), loaded strictly."""
+        (``utils/checkpoint.save_params``) or from a ``CheckpointManager``
+        directory (numbered step directories: the latest step's params and
+        BN statistics, without the optimizer's state), loaded strictly."""
         p = cls(**kwargs)
-        load_params(path, p.model)
+        is_manager_dir = os.path.isdir(path) and any(s.isdigit() for s in os.listdir(path))
+        if is_manager_dir:
+            saved = CheckpointManager(path).restore_partial()
+            p.model.load_state_dict({**saved["params"], **saved["batch_stats"]}, strict=True)
+        else:
+            load_params(path, p.model)
         return p
 
     def _pipeline(self, image: torch.Tensor):
@@ -157,8 +174,9 @@ class Predictor:
         """(H, W, 3) RGB uint8 -> (boxes xyxy in source pixels, scores,
         classes), truncated to the valid detections."""
         image = self._check(image)
-        run = self._compiled(*image.shape[:2])
-        return self._to_host(run(torch.from_numpy(image)))
+        with self._lock:
+            run = self._compiled(*image.shape[:2])
+            return self._to_host(run(torch.from_numpy(image)))
 
     def eager(self, image: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The same pipeline run op by op, without a graph: what a replay is
@@ -172,7 +190,8 @@ class Predictor:
 def main(argv=None):
     p = argparse.ArgumentParser(description="EfficientDet inference demo.")
     p.add_argument("--phi", type=int, default=0, choices=range(8))
-    p.add_argument("--checkpoint", default=None, help="a save_params file")
+    p.add_argument("--checkpoint", default=None,
+                   help="a save_params file or a CheckpointManager directory")
     p.add_argument("--image", required=True)
     p.add_argument("--output", default=None)
     p.add_argument("--num-classes", type=int, default=90)

@@ -12,7 +12,8 @@ Counterpart of the JAX package's ``serve.py`` (``from_artifact`` and
   bounded queue sheds overload, and crash guards fail callers instead of
   hanging them.
 * ``python -m efficientdet_tpu_torch.serve``: a stdlib HTTP endpoint (POST
-  /predict with a JPEG/PNG body -> JSON detections).
+  /predict with a JPEG/PNG body -> JSON detections; 501 on a host without
+  PIL, which decodes the body).
 
 Every request is letterboxed on the host to the model resolution, so on the
 card one CUDA graph per bucket serves all traffic. There:
@@ -402,7 +403,8 @@ class BatchingPredictor:
 
 def make_http_handler(predictor, max_request_mb: float = 32.0):
     """The stdlib request handler for ``main`` (factored out so the error
-    paths, 404/413/400/503/504, are testable without a model)."""
+    paths, 404/413/501/400/503/504, are testable without a model). The body
+    is an encoded image, decoded with PIL; without PIL the answer is 501."""
     import io
     import json
     from http.server import BaseHTTPRequestHandler
@@ -419,8 +421,14 @@ def make_http_handler(predictor, max_request_mb: float = 32.0):
                 self.send_error(413, f"request body exceeds {max_request_mb} MB")
                 return
             body = self.rfile.read(length)
-            from PIL import Image
-
+            try:
+                from PIL import Image
+            except ImportError:
+                # a host without the decoder (some lack PIL; the device
+                # line's host_modules says which) answers with a status
+                # line, not a dropped connection
+                self.send_error(501, "no image decoder on this host")
+                return
             try:
                 img = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
             except Exception:

@@ -14,6 +14,11 @@ torch key by joining with ``.`` and renaming the leaf:
 It takes the unfused tree and the output of the JAX package's
 ``fold_bn_variables`` alike. An unknown leaf name raises here; keys the
 model lacks or leaves it without raise in :func:`load_flax_variables`.
+
+:func:`adam_state_from_optax` bridges a training state's optimizer: optax's
+Adam moments (``mu``, ``nu``: trees shaped like ``params``) and its count
+become the port's ``train_lib.Optimizer`` state, so a step can start from a
+JAX step's state.
 """
 
 from __future__ import annotations
@@ -65,3 +70,19 @@ def load_flax_variables(model: torch.nn.Module, variables: Dict[str, Any]) -> to
         )
     model.load_state_dict(sd)
     return model
+
+
+def adam_state_from_optax(mu: Dict[str, Any], nu: Dict[str, Any], count: int,
+                          device=None) -> Dict[str, Any]:
+    """optax ``ScaleByAdamState`` leaves (numpy trees shaped like ``params``,
+    and the count) -> the port's optimizer state, on ``device`` (None = the
+    GPU, raising without one, as the training entry points resolve it). The
+    moments take the parameters' layout, as the kernels do."""
+    from ..models.detector import resolve_device
+
+    device = resolve_device(device)
+
+    def moments(tree):
+        return {k: v.to(device) for k, v in from_flax_variables({"params": tree}).items()}
+
+    return {"count": int(count), "mu": moments(mu), "nu": moments(nu)}

@@ -20,9 +20,8 @@ def test_model_config_for_phi(phi):
     anchor = tf.pop("anchor")
     jf = _fields(j)
     assert _fields(anchor) == _fields(jf.pop("anchor"))
-    # the port keeps every field but the training-only remat switches
-    assert tf == {k: v for k, v in jf.items() if k in tf}
-    assert set(jf) - set(tf) - {"anchor"} == {"remat", "remat_scope", "remat_max_stage"}
+    # every field, the remat switches included
+    assert tf == jf
     assert t.num_levels == j.num_levels
     assert t.num_anchors_per_cell == j.num_anchors_per_cell
     assert t.feature_shapes() == j.feature_shapes()

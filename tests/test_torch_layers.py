@@ -61,7 +61,7 @@ def test_batchnorm_inference(seed):
     jm = JBatchNorm(use_running_average=True)
     v = _randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)), rng)
     want = np.asarray(jm.apply(v, jnp.asarray(x)))
-    tm = load_flax_variables(TpuBatchNorm(12, eps=1e-3), v)
+    tm = load_flax_variables(TpuBatchNorm(12, eps=1e-3), v).eval()  # running statistics
     _close(_nhwc(tm(_nchw(x))), want, 1e-6)
 
 
@@ -117,7 +117,7 @@ def test_fused_node(n, weighted):
     jm = JFusedNode(features=16, num_inputs=n, weighted=weighted)
     v = _randomize(jm.init(jax.random.PRNGKey(0), [jnp.asarray(x) for x in xs]), rng)
     want = np.asarray(jm.apply(v, [jnp.asarray(x) for x in xs]))
-    tm = load_flax_variables(FusedNode(16, n, weighted=weighted), v)
+    tm = load_flax_variables(FusedNode(16, n, weighted=weighted), v).eval()  # running statistics
     _close(_nhwc(tm([_nchw(x) for x in xs])), want)
 
 

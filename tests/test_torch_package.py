@@ -101,7 +101,8 @@ def test_guard_walks_the_port_experiments(tmp_path):
     for name in ("experiments.packed_mbconv", "experiments.mbconv", "experiments.packed_chain",
                  "experiments.tap_floor", "ops.mbconv_kernel", "ops.tap_floor_kernel",
                  "predict", "inference", "serve", "data.common", "utils.image",
-                 "utils.checkpoint", "utils.cuda_graph"):
+                 "utils.checkpoint", "utils.cuda_graph", "train_lib", "losses", "anchors",
+                 "models.normalization", "models.remat", "utils.convert"):
         assert f"efficientdet_tpu_torch.{name}" in mods
     src = tmp_path / "probe.py"
     src.write_text("from ..experiments import packed_mbconv\nimport experiments.packed_chain\n")
@@ -245,3 +246,36 @@ def test_predictor_graph_replay_equals_eager():
         for got, want in zip(p(img), p.eager(img)):
             np.testing.assert_array_equal(got, want)
     assert list(p._run_cache) == [(120, 200)]
+
+
+@pytest.mark.cuda
+def test_predictor_threads_at_two_shapes_on_the_gpu():
+    """On a GPU: threads sharing one Predictor at two source shapes (two
+    CUDA graphs of one pool) each get the answer eager() gives their image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs the Predictor at full size")
+    import threading
+
+    import numpy as np
+
+    p = efficientdet_tpu_torch.Predictor(phi=0, num_classes=8, image_size=256, score_threshold=0.0)
+    rng = np.random.RandomState(1)
+    images = [rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+              for hw in ((120, 200), (200, 120)) for _ in range(2)]
+    want = [p.eager(img) for img in images]
+    errors = []
+
+    def caller(k):
+        for _ in range(10):
+            got = p(images[k % len(images)])
+            if not all(np.array_equal(g, w) for g, w in zip(got, want[k % len(images)])):
+                errors.append(k)
+
+    threads = [threading.Thread(target=caller, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors
+    assert sorted(p._run_cache) == [(120, 200), (200, 120)]

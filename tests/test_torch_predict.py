@@ -10,6 +10,9 @@ weights are drawn with numpy and bridged into the port by
 """
 
 import dataclasses
+import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -303,6 +306,65 @@ def test_checkpoint_round_trip(tmp_path):
     save_params(bad, {k: v for k, v in src.model.state_dict().items() if "class_net" not in k})
     with pytest.raises(RuntimeError, match="Missing key"):
         Predictor.from_checkpoint(bad, **kw)
+
+
+class _SharedBufferGraph:
+    """A stand-in for a shape's GraphedCall on the card: one static input
+    per shape and one set of outputs shared by every shape (the graphs of a
+    pool), with a pause between the copy-in and the "replay", which writes
+    the outputs from the static input."""
+
+    def __init__(self, hw, outputs):
+        self.static_input = torch.zeros(hw + (3,), dtype=torch.uint8)
+        self.outputs = outputs
+
+    def __call__(self, x):
+        self.static_input.copy_(x)
+        time.sleep(0.001)
+        value = self.static_input.float().mean()
+        for t in self.outputs[:3]:
+            t.fill_(value)
+        return self.outputs
+
+
+def test_concurrent_callers_get_their_own_answers():
+    """Threads sharing one Predictor at two source shapes, over runners that
+    share their buffers as the card's graphs do: every caller gets the
+    answer of its own image (one lock covers cache, copy-in, replay and
+    copy-out)."""
+    p = Predictor(phi=0, num_classes=4, image_size=SIZE, device="cpu")
+    outputs = (torch.zeros(1, 4), torch.zeros(1), torch.zeros(1, dtype=torch.int32),
+               torch.ones((), dtype=torch.int32))
+    runners = {}
+
+    def compiled(h, w):
+        return runners.setdefault((h, w), _SharedBufferGraph((h, w), outputs))
+
+    p._compiled = compiled
+    shapes = [(24, 32), (32, 24)]
+    errors, done = [], []
+
+    def caller(k):
+        img = np.full(shapes[k % 2] + (3,), 10 + k, np.uint8)
+        for _ in range(25):
+            boxes, scores, classes = p(img)
+            if not (boxes == 10 + k).all() or not (classes == 10 + k).all():
+                errors.append((k, float(boxes.ravel()[0])))
+        done.append(k)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=caller, args=(k,)) for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and sorted(done) == list(range(8))
+    assert not errors, f"{len(errors)} answers of another caller's image, e.g. {errors[:3]}"
+    assert sorted(runners) == sorted(shapes)
 
 
 def test_predictor_rejects_bad_input():

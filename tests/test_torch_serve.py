@@ -436,6 +436,23 @@ def test_http_predict_errors_answer_a_status(error, status):
         pred.close()
 
 
+@pytest.mark.parametrize("body", [_png, lambda: b"definitely not a JPEG"], ids=["png", "garbage"])
+def test_http_without_an_image_decoder_answers_501(body, monkeypatch):
+    """On a host without PIL (the card's) a POST gets a 501 status line, not
+    a dropped connection; with PIL, a garbage body still gets 400."""
+    payload = body()
+    pred = stub_predictor()
+    server = _serve(pred)
+    try:
+        assert _post(server, payload)[0] == (200 if payload.startswith(b"\x89PNG") else 400)
+        monkeypatch.setitem(sys.modules, "PIL", None)  # import PIL raises ImportError
+        status, text = _post(server, payload)
+        assert status == 501 and b"no image decoder" in text
+    finally:
+        server.shutdown()
+        pred.close()
+
+
 def test_valid_png_roundtrips_detections():
     pred = stub_predictor()  # fixed detections: one box a request
     server = _serve(pred)
