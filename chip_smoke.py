@@ -87,8 +87,32 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    the trained weights folded through the main path (both kernels);
    with --profile-dir, two profiled float32 steps (kernels and ATen
    operators by device time, the trace as train_trace.json.gz);
-12. the kernels line, the card line, and the last line,
+12. data: 256 numpy images over the predictor phase's five shapes (1-20
+   boxes of 16-256 px, 90 classes, seed 0): batch_iterator's ms per batch
+   of 64 at 512 px with workers 0, with 8 workers and the default intra-op
+   threads, with 8 workers and one, and with the host augmenter; the
+   DeviceDataCache pool equal to batch_iterator's canvases bit for bit, its
+   MB and get_batch's ms; the device augmenter at batch 64 (ms, device ms,
+   the card against the CPU on the same matrices and colour factors, two
+   card runs equal); the native IoU library built and equal to numpy;
+13. train_cli: train.train_from_datasets (the CLI's loop) at D0@512 batch 64
+   f32 (TF32 off), 2 epochs of 5 steps, in four configurations: (a)
+   --workers 0, (b) --workers 8, (c) --random-transform --workers 8, (d)
+   --device-cache 256 --device-augment with the epoch-end COCO evaluation on
+   64 images and --reduce-lr-patience 1: ms/step and img/s after the first
+   two steps (an epoch's first step, which follows its evaluation, apart),
+   the idle share of two profiled steps, every loss and gradient norm
+   finite and the last loss below the first; in (d) the head and NMS
+   kernels launched by the evaluation, the plateau's LR cut, the snapshots;
+   then the evaluation once more with its host and card time apart, an
+   oracle predict function at AP 1.0 through collect_detections, and
+   evaluate.py's function on (d)'s snapshots giving the same AP; then
+   train.main on a CSV dataset of PNG files where PIL or cv2 imports;
+14. the kernels line, the card line, and the last line,
    {"ok": true, "device": {...}}.
+
+Before each phase a line {"phase": "<name>"}; a phase's failure prints
+its traceback to stdout and ends the run with a non-zero exit code.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -104,6 +128,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 
 import numpy as np
 
@@ -821,6 +846,10 @@ def phase_tap_floor(tk, tf, chain_d0_ms, d0_ms):
                                                  2 * fmas, peak)
     main = next(r for r in floor["rates"] if (r["op"], r["dtype"], r["chains"]) == ("fma", "f32", 4))
     x = torch.ones((tf.ROWS, tf.COLS), device="cuda")
+    # the main row's launch alone (f32, taps 9, chains 4), by torch.profiler:
+    # the mean over the launches it recorded (and how many of 5 it did)
+    main["device_ms"], main["profiled_launches"] = _launch_device_ms(
+        lambda: tk.tap_floor(x, "fma", 9, FLOOR_REPEATS, 4), "tap_floor", calls=5)
     plain = cuda_ms(lambda: tk.tap_floor_reference(x, "fma", 9, FLOOR_REPEATS, 4), iters=1, warmup=0)
     ceiling = tf.ceiling_from_rates(floor["tap_fma_g_s"], floor["swish_g_s"], floor["t_mm_ms"],
                                     HBM_BYTES_S, chain_d0_ms, d0_ms)
@@ -828,6 +857,33 @@ def phase_tap_floor(tk, tf, chain_d0_ms, d0_ms):
           "harness_launches": launches, "plain_ms_f32_chains4": plain,
           "ceiling": ceiling})
     return worst, main, plain, launches
+
+
+def _launch_device_ms(fn, name, calls):
+    """(mean device ms of a kernel whose name holds ``name``, its launches
+    recorded) over ``calls`` calls of ``fn()`` under torch.profiler, after
+    a warm-up call and, inside the window, a small kernel of its own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and name in ev.key:
+            dev = getattr(ev, "self_device_time_total", None)
+            total += (ev.self_cuda_time_total if dev is None else dev) / 1e3
+            count += ev.count
+    if count == 0:
+        raise AssertionError(f"the profiler saw no {name} kernel")
+    return total / count, count
 
 
 def _median_ms(fn, steps):
@@ -1460,6 +1516,445 @@ def phase_train(et, kernels, card, profile_dir):
     return rec
 
 
+# the data-fed training phases: an in-memory dataset made with numpy (seed 0)
+DATA_IMAGES = 256
+DATA_SHAPES = PREDICT_SHAPES  # the predictor phase's five source shapes (h, w)
+DATA_BATCH = 64
+DATA_WORKERS = 8
+DATA_BATCHES = 3  # timed batches per pipeline configuration, after one warm-up
+CLI_EPOCHS = 2
+CLI_STEPS = 5
+EVAL_IMAGES = 64
+DEVICE = "cuda"  # the data phases' device (a rehearsal on the CPU sets "cpu")
+
+
+def _smoke_dataset(et, n=DATA_IMAGES, seed=0):
+    """``n`` noise images over ``DATA_SHAPES``, 1-20 boxes an image of 16-256
+    px sides inside the image, 90 classes; a COCO-style index (category id =
+    label + 1, image id = index) for ``evaluate_coco``."""
+
+    class SmokeDataset(et.DetectionDataset):
+        def __init__(self):
+            rng = np.random.RandomState(seed)
+            self.images, self.anns, annotations = [], [], []
+            for i in range(n):
+                h, w = DATA_SHAPES[i % len(DATA_SHAPES)]
+                self.images.append(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+                k = rng.randint(1, 21)
+                bw = rng.uniform(16, min(256, w - 2), k)
+                bh = rng.uniform(16, min(256, h - 2), k)
+                x1 = rng.uniform(0, w - 1 - bw)
+                y1 = rng.uniform(0, h - 1 - bh)
+                boxes = np.stack([x1, y1, x1 + bw, y1 + bh], 1).astype(np.float32)
+                labels = rng.randint(0, 90, k).astype(np.int32)
+                self.anns.append((boxes, labels))
+                annotations += [{"image_id": i, "category_id": int(c) + 1, "iscrowd": 0,
+                                 "bbox": [float(b[0]), float(b[1]), float(b[2] - b[0]), float(b[3] - b[1])],
+                                 "area": float((b[2] - b[0]) * (b[3] - b[1]))}
+                                for b, c in zip(boxes, labels)]
+            self.cat_ids = list(range(1, 91))
+            self.label_to_coco_label = {i: i + 1 for i in range(90)}
+            self.coco = type("CocoIndex", (), {"dataset": {"annotations": annotations}})()
+
+        def __len__(self):
+            return len(self.images)
+
+        def load_image(self, index):
+            return self.images[index]
+
+        def load_annotations(self, index):
+            return self.anns[index]
+
+        def num_classes(self):
+            return 90
+
+        def image_aspect_ratio(self, index):
+            h, w = self.images[index].shape[:2]
+            return w / h
+
+    return SmokeDataset()
+
+
+def _head(ds, k):
+    """The first ``k`` images of ``ds`` as a dataset of its own class."""
+    sub = object.__new__(type(ds))
+    sub.__dict__.update(ds.__dict__)
+    sub.images, sub.anns = ds.images[:k], ds.anns[:k]
+    sub.coco = type("CocoIndex", (), {"dataset": {"annotations": [
+        a for a in ds.coco.dataset["annotations"] if a["image_id"] < k]}})()
+    return sub
+
+
+def _pipeline_ms(et, ds, size, **kw):
+    """ms per batch of DATA_BATCH from batch_iterator (its first batch, which
+    starts the pool and builds the colour tables, apart)."""
+    it = et.batch_iterator(ds, DATA_BATCH, target_size=size, max_gt=TRAIN_MAX_GT, repeat=True,
+                           seed=1, **kw)
+    t0 = time.perf_counter()
+    next(it)
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(DATA_BATCHES):
+        next(it)
+    dt = (time.perf_counter() - t0) / DATA_BATCHES
+    it.close()
+    return {"ms_per_batch": dt * 1e3, "img_s": DATA_BATCH / dt, "first_batch_ms": first * 1e3}
+
+
+def _with_threads(n, fn):
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(before)
+
+
+def phase_data(et, card):
+    """The host pipeline's ms per batch of 64 (workers 0; workers 8 with the
+    default intra-op threads and with one; the host augmenter with workers
+    8), the DeviceDataCache pool against batch_iterator's canvases, the
+    gather, the device augmenter at batch 64 (card against CPU on the same
+    draws, two card runs equal) and the native IoU library."""
+    import torch
+
+    from efficientdet_tpu_torch.data.augment import make_augmenter
+    from efficientdet_tpu_torch.data.device_cache import DeviceDataCache
+    from efficientdet_tpu_torch.evaluation import host_overlap
+    from efficientdet_tpu_torch.ops import augment as dev_aug
+
+    t0 = time.perf_counter()
+    ds = _smoke_dataset(et)
+    make_s = time.perf_counter() - t0
+    size = TRAIN_SIZE
+    threads = torch.get_num_threads()
+    pipe = {"workers0": _pipeline_ms(et, ds, size),
+            "workers8_default_threads": _pipeline_ms(et, ds, size, workers=DATA_WORKERS),
+            "workers8_one_thread": _with_threads(1, lambda: _pipeline_ms(et, ds, size, workers=DATA_WORKERS))}
+    one = pipe["workers8_one_thread"]["ms_per_batch"] < pipe["workers8_default_threads"]["ms_per_batch"]
+    t0 = time.perf_counter()
+    augment = make_augmenter()  # makes the colour tables, once a process
+    tables_s = time.perf_counter() - t0
+    pipe["augmenter_workers8_default_threads"] = _pipeline_ms(
+        et, ds, size, workers=DATA_WORKERS, augment=augment)
+    pipe["augmenter_workers8_one_thread"] = _with_threads(1, lambda: _pipeline_ms(
+        et, ds, size, workers=DATA_WORKERS, augment=augment))
+
+    t0 = time.perf_counter()
+    cache = DeviceDataCache(ds, size, max_gt=TRAIN_MAX_GT, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for batch in et.batch_iterator(ds, DATA_BATCH, target_size=size, max_gt=TRAIN_MAX_GT,
+                                   shuffle=False, drop_last=False):
+        got = cache.get_batch(batch["indices"])
+        for k in ("images", "gt_boxes", "gt_labels", "extents", "scales"):
+            if not np.array_equal(got[k].cpu().numpy(), batch[k]):
+                raise AssertionError(f"data: the cache's {k} differ from batch_iterator's")
+    idx = np.random.RandomState(2).permutation(len(ds))[:DATA_BATCH]
+    get_ms = cuda_ms(lambda: cache.get_batch(idx))
+
+    batch = cache.get_batch(idx)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    mats = dev_aug.sample_transform_matrices(gen, DATA_BATCH, size, extents=batch["extents"], device=DEVICE)
+    factors = dev_aug.sample_color_factors(gen, DATA_BATCH, device=DEVICE)
+
+    def apply():
+        return dev_aug.apply_augment(batch["images"], batch["gt_boxes"], batch["gt_labels"],
+                                     batch["extents"], mats, factors)
+
+    a, b = apply(), apply()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("data: two runs of the device augmenter differ")
+    aug_ms = cuda_ms(apply, iters=5, warmup=1)
+    aug_device_ms = sum(kernel_ms(apply, calls=2).values())
+    cpu = dev_aug.apply_augment(*(t.cpu() for t in (batch["images"], batch["gt_boxes"], batch["gt_labels"],
+                                                   batch["extents"], mats)),
+                                {k: v.cpu() for k, v in factors.items()})
+    img_err = float((a[0].cpu() - cpu[0]).abs().max())
+    box_err = float((a[1].cpu() - cpu[1]).abs().max())
+    labels_equal = bool(torch.equal(a[2].cpu(), cpu[2]))
+    # images within 2e-3 of their [0, 255] scale (0.51 grey levels): on noise
+    # images a float32 coordinate a few ulps apart at 512 px moves a sample
+    # by up to 255 x 1e-4
+    if img_err > 2e-3 * 255 or box_err > 1e-4 or not labels_equal:
+        raise AssertionError(f"data: the device augmenter's card and CPU results differ: images {img_err}, "
+                             f"boxes {box_err}, labels equal {labels_equal}")
+
+    if not host_overlap.using_native():
+        raise AssertionError(f"data: the native IoU library did not build: {host_overlap.build_error}")
+    rng = np.random.RandomState(4)
+    xy = rng.uniform(0, 500, (2, 500, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(-5, 200, (2, 500, 2))], -1)
+    if not np.array_equal(host_overlap.compute_overlap(boxes[0], boxes[1]),
+                          host_overlap.compute_overlap_numpy(boxes[0], boxes[1])):
+        raise AssertionError("data: the native IoU differs from numpy")
+    rec = {"phase": "data", "images": len(ds), "shapes": DATA_SHAPES, "make_dataset_s": make_s,
+           "batch": DATA_BATCH, "target_size": size, "intra_op_threads_default": threads,
+           "pipeline": pipe, "faster_workers8": "one thread" if one else "default threads",
+           "color_tables_s": tables_s,
+           "cache_build_s": build_s, "cache_mb": cache.nbytes() / 1e6,
+           "cache_equals_batch_iterator": True, "get_batch_ms": get_ms,
+           "device_augment": {"batch": DATA_BATCH, "ms": aug_ms, "device_ms": aug_device_ms,
+                              "card_vs_cpu": {"images_max_abs": img_err, "boxes_max_abs": box_err,
+                                              "labels_equal": labels_equal,
+                                              "tolerance": "images 2e-3 x 255, boxes 1e-4 px, labels exact"},
+                              "two_runs_equal": True},
+           "native_iou": True, "card": card}
+    emit(rec)
+    del cache, batch, a, b, cpu
+    torch.cuda.empty_cache()
+    return rec, ds
+
+
+class _StepClock:
+    """on_step for train_from_datasets: each step's interval (ending in a
+    synchronize), its loss and gradient norm, and a torch.profiler window over
+    two steps (``profile_at``: the step after which it starts)."""
+
+    def __init__(self, profile_at=3):
+        self.intervals, self.losses, self.norms = [], [], []
+        self.profile_at, self.prof, self.prof_t0, self.idle = profile_at, None, None, None
+        self.t = None
+
+    def __call__(self, epoch, s, state, metrics):
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        n = len(self.losses)
+        # the interval before the first step of a later epoch holds the
+        # epoch's evaluation and checkpoint: not a step
+        self.intervals.append(None if self.t is None or s == 0 else now - self.t)
+        self.losses.append(float(metrics["loss"]))
+        self.norms.append(float(metrics["grad_norm"]))
+        if n + 1 == self.profile_at and s + 2 < CLI_STEPS:
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+            self.prof_t0 = time.perf_counter()
+        elif self.prof is not None and n + 1 == self.profile_at + 2:
+            wall = (time.perf_counter() - self.prof_t0) * 1e3
+            self.prof.stop()
+            busy = 0.0
+            for ev in self.prof.key_averages():
+                if ev.device_type == DeviceType.CUDA:
+                    dev = getattr(ev, "self_device_time_total", None)
+                    busy += (ev.self_cuda_time_total if dev is None else dev) / 1e3
+            self.idle = {"steps": 2, "wall_ms": wall, "device_busy_ms": busy,
+                         "idle_share": max(0.0, 1.0 - busy / wall)}
+            self.prof = None
+        self.t = time.perf_counter()
+
+    def record(self, batch):
+        timed = [x for x in self.intervals[2:] if x is not None]
+        ms = float(np.mean(timed)) * 1e3
+        return {"ms_per_step": ms, "img_s": batch / ms * 1e3, "timed_steps": len(timed),
+                "loss": self.losses, "grad_norm": self.norms, "profile": self.idle}
+
+
+def _cli_args(et_train, snapshot, *extra):
+    return et_train.parse_args(["coco", "unused", "--device", DEVICE, "--phi", "0", "--image-size", str(TRAIN_SIZE),
+                                "--batch-size", str(TRAIN_BATCH), "--epochs", str(CLI_EPOCHS),
+                                "--steps", str(CLI_STEPS), "--max-gt", str(TRAIN_MAX_GT),
+                                "--snapshot-path", snapshot, *extra])
+
+
+def phase_train_cli(et, kernels, card, ds):
+    """train.train_from_datasets (the CLI's loop) at D0@512 batch 64 f32 for
+    2 epochs of 5 steps: (a) --workers 0, (b) --workers 8, (c)
+    --random-transform --workers 8, (d) --device-cache 256 --device-augment
+    with the epoch-end COCO evaluation on 64 images; then the evaluation's
+    host/card split, an oracle at AP 1, the plateau's LR cut, the snapshots
+    and evaluate.py on them; then train.main on PNG files where the host
+    has an image library."""
+    import shutil
+
+    import torch
+
+    from efficientdet_tpu_torch import evaluate as et_evaluate
+    from efficientdet_tpu_torch import train as et_train
+    from efficientdet_tpu_torch.evaluation.coco_eval import evaluate_coco, make_batch_predict_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build = os.path.join(ROOT, "efficientdet_tpu_torch", "_build")
+    val = _head(ds, EVAL_IMAGES)
+    configs = {"a_host_workers0": ("--no-eval", "--workers", "0"),
+               "b_host_workers8": ("--no-eval", "--workers", str(DATA_WORKERS)),
+               "c_random_transform_workers8": ("--no-eval", "--random-transform", "--workers",
+                                               str(DATA_WORKERS)),
+               "d_device_cache_augment": ("--device-cache", str(DATA_IMAGES), "--device-augment",
+                                          "--reduce-lr-patience", "1")}
+    runs = {}
+    for name, extra in configs.items():
+        snap = os.path.join(build, f"smoke_cli_{name}")
+        shutil.rmtree(snap, ignore_errors=True)
+        args = _cli_args(et_train, snap, *extra)
+        clock = _StepClock()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        model, state, history = et_train.train_from_datasets(args, ds, val if name.startswith("d") else None,
+                                                      on_step=clock)
+        torch.cuda.synchronize()
+        rec = {"config": " ".join(extra), "wall_s": time.perf_counter() - t0, **clock.record(TRAIN_BATCH),
+               "launches": _launch_counts(kernels), "history": history}
+        if not (np.isfinite(rec["loss"]).all() and np.isfinite(rec["grad_norm"]).all()):
+            raise AssertionError(f"train_cli {name}: a non-finite loss or gradient norm: {rec}")
+        if not rec["loss"][-1] < rec["loss"][0]:
+            raise AssertionError(f"train_cli {name}: the last loss is not below the first: {rec['loss']}")
+        if name.startswith("d"):
+            steps = sorted(int(d) for d in os.listdir(snap) if d.isdigit())
+            if steps != [CLI_STEPS, 2 * CLI_STEPS]:
+                raise AssertionError(f"train_cli: the snapshots are {steps}")
+            if not (rec["launches"]["head_pointwise"] > 0 and rec["launches"]["nms_suppress"] > 0):
+                raise AssertionError(f"train_cli: the epoch evaluation missed a kernel: {rec['launches']}")
+            maps = [h["mAP"] for h in history]
+            if not (maps[1] <= maps[0] and history[-1]["lr_scale"] < 1.0):
+                raise AssertionError(f"train_cli: no plateau cut with patience 1: {history}")
+            with open(os.path.join(snap, "train_log.jsonl")) as f:
+                rec["eval_stats"] = [json.loads(line) for line in f if '"AP"' in line]
+            model_d, state_d, snap_d = model, state, snap
+        runs[name] = rec
+        emit({"phase": "train_cli_run", "name": name, **{k: v for k, v in rec.items() if k != "history"},
+              "history": history, "card": card})
+        if not name.startswith("d"):
+            shutil.rmtree(snap, ignore_errors=True)
+        del model, state
+        torch.cuda.empty_cache()
+
+    # the epoch evaluation once more, its host and card time apart
+    card_s = []
+
+    def timed(predict):
+        def fn(images):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = predict(images)
+            torch.cuda.synchronize()
+            card_s.append(time.perf_counter() - t0)
+            return out
+        return fn
+
+    for fn in kernels.values():
+        fn.launches = 0
+    with et_train.eval_weights(model_d, state_d):
+        t0 = time.perf_counter()
+        stats = evaluate_coco(val, timed(make_batch_predict_fn(model_d)), TRAIN_SIZE, batch_size=TRAIN_BATCH,
+                              max_images=500)
+        total_s = time.perf_counter() - t0
+    eval_launches = _launch_counts(kernels)
+    if not (eval_launches["head_pointwise"] > 0 and eval_launches["nms_suppress"] > 0):
+        raise AssertionError(f"train_cli: the evaluation missed a kernel: {eval_launches}")
+    if abs(stats["AP"] - runs["d_device_cache_augment"]["history"][-1]["mAP"]) > 1e-6:
+        raise AssertionError(f"train_cli: the evaluation's AP {stats['AP']} differs from the loop's")
+
+    def oracle(images):
+        """Each canvas's ground truth, letterboxed: the batch is the first
+        len(images) images in order (shuffle off)."""
+        b = len(images)
+        boxes = torch.zeros((b, TRAIN_MAX_GT, 4))
+        scores = torch.zeros((b, TRAIN_MAX_GT))
+        classes = torch.zeros((b, TRAIN_MAX_GT), dtype=torch.int32)
+        n = torch.zeros((b,), dtype=torch.int32)
+        for i in range(b):
+            img = val.load_image(i)
+            gb, gl = val.filter_annotations(*val.load_annotations(i), img.shape[:2])
+            k = len(gb)
+            boxes[i, :k] = torch.from_numpy(gb) * (TRAIN_SIZE / max(img.shape[:2]))
+            scores[i, :k] = 1.0
+            classes[i, :k] = torch.from_numpy(gl)
+            n[i] = k
+        return boxes, scores, classes, n
+
+    oracle_stats = evaluate_coco(val, oracle, TRAIN_SIZE, batch_size=EVAL_IMAGES)
+    if abs(oracle_stats["AP"] - 1.0) > 1e-12:
+        raise AssertionError(f"train_cli: the oracle's AP is {oracle_stats['AP']}, not 1")
+
+    # evaluate.py's function on the snapshots of (d), with the loop's EvalConfig
+    eargs = et_evaluate.parse_args(["coco", "unused", "--device", DEVICE, "--snapshot", snap_d, "--dtype", "f32",
+                                    "--batch-size", str(TRAIN_BATCH), "--fast-eval"])
+    restored = et_evaluate.evaluate_snapshot(eargs, val)
+    if any(abs(restored[k] - stats[k]) > 1e-6 for k in stats):
+        raise AssertionError(f"train_cli: evaluate.py's AP {restored} differs from the loop's {stats}")
+    shutil.rmtree(snap_d, ignore_errors=True)
+    del model_d, state_d
+    torch.cuda.empty_cache()
+
+    files = _train_cli_files(et_train, ds, build)
+    card_ms = sum(card_s) * 1e3
+    rec = {"phase": "train_cli", "model": "D0@512, 90 classes, f32 (TF32 off), batch 64, random weights",
+           "epochs": CLI_EPOCHS, "steps_per_epoch": CLI_STEPS,
+           "runs": {k: {"ms_per_step": r["ms_per_step"], "img_s": r["img_s"],
+                        "idle_share": (r["profile"] or {}).get("idle_share"),
+                        "loss_first_last": [r["loss"][0], r["loss"][-1]]} for k, r in runs.items()},
+           "eval": {"images": EVAL_IMAGES, "batch": TRAIN_BATCH, "ms_per_image": total_s * 1e3 / EVAL_IMAGES,
+                    "card_ms_per_image": card_ms / EVAL_IMAGES,
+                    "host_ms_per_image": (total_s * 1e3 - card_ms) / EVAL_IMAGES,
+                    "launches": eval_launches, "stats": stats},
+           "loop_eval_launches": runs["d_device_cache_augment"]["launches"],
+           "oracle_AP": oracle_stats["AP"], "plateau_lr_scale": runs["d_device_cache_augment"]["history"][-1]["lr_scale"],
+           "evaluate_py": "restored the snapshots, same AP", "files": files, "card": card}
+    emit(rec)
+    return rec
+
+
+def _train_cli_files(et_train, ds, build):
+    """train.main on a CSV dataset of PNG files (1 epoch of 2 steps, batch 8)
+    where PIL or cv2 reads them on this host; else a record that it could
+    not run."""
+    import importlib.util
+    import shutil
+
+    host_modules = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2")}
+    emit({"phase": "train_cli_files_host", "host_modules": host_modules})
+    if not any(host_modules.values()):
+        return {"run": False, "why": "neither PIL nor cv2 imports on this host: "
+                                     "the file-reading run was not possible"}
+    root = os.path.join(build, "smoke_cli_files")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rows = []
+    for i in range(16):
+        img = ds.load_image(i)
+        with open(os.path.join(root, f"img{i}.png"), "wb") as f:
+            f.write(_png_bytes(img))
+        for b, c in zip(*ds.load_annotations(i)):
+            rows.append(f"img{i}.png,{b[0]:.3f},{b[1]:.3f},{b[2]:.3f},{b[3]:.3f},class{c}")
+    with open(os.path.join(root, "annots.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    with open(os.path.join(root, "classes.csv"), "w") as f:
+        f.write("".join(f"class{c},{c}\n" for c in range(90)))
+    t0 = time.perf_counter()
+    state = et_train.main(["csv", os.path.join(root, "annots.csv"), os.path.join(root, "classes.csv"),
+                           "--image-size", str(TRAIN_SIZE), "--batch-size", "8", "--epochs", "1",
+                           "--steps", "2", "--workers", str(DATA_WORKERS), "--device", DEVICE,
+                           "--snapshot-path", os.path.join(root, "ckpt")])
+    out = {"run": True, "host_modules": host_modules, "steps": int(state.step),
+           "wall_s": time.perf_counter() - t0}
+    shutil.rmtree(root, ignore_errors=True)
+    if out["steps"] != 2:
+        raise AssertionError(f"train_cli: the file-reading run took {out['steps']} steps")
+    return out
+
+
+def run_phase(name, fn, *args):
+    """``{"phase": name}`` on stdout, then ``fn(*args)``; a failure's
+    traceback goes to stdout too (with the phase named above it) and the
+    exception propagates, so the exit code stays non-zero."""
+    emit({"phase": name})
+    try:
+        return fn(*args)
+    except BaseException:
+        print(f"chip_smoke: phase {name} failed:", flush=True)
+        traceback.print_exc(file=sys.stdout)
+        sys.stdout.flush()
+        raise
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-dir", default=None,
@@ -1484,22 +1979,25 @@ def main() -> int:
     from efficientdet_tpu_torch.ops import cuda_build
 
     t_start = time.perf_counter()
-    card = phase_device(cuda_build)
-    head_err, head_t = phase_head(hk)
-    nms_t = phase_nms(nk)
-    launches, ms_per_call = phase_pipeline(et, hk, nk, card, args.profile_dir)
-    phase_gpu_vs_cpu(et, tn)
-    mb_err, mb_blocks, harness = phase_mbconv(mk, pm)
-    chains, chain_launches = phase_chain(mk, pc)
-    floor_err, floor, floor_plain, floor_launches = phase_tap_floor(
-        tk, tf, chains[0]["baseline_ms"], ms_per_call)
-    phase_predictor(et, nk, card)
-    phase_serve(et, hk, nk, card)
-    phase_train(et, {"head_pointwise": hk.head_pointwise_anchor_major,
-                     "nms_suppress": nk.suppression_keep_mask,
-                     "fused_mbconv_packed": mk.packed_mbconv, "fused_mbconv_rp": mk.packed_mbconv_rp,
-                     "fused_mbconv_nhwc": mk.fused_mbconv_nhwc, "tap_floor": tk.tap_floor},
-                card, args.profile_dir)
+    card = run_phase("device", phase_device, cuda_build)
+    head_err, head_t = run_phase("head_kernel", phase_head, hk)
+    nms_t = run_phase("nms_kernel", phase_nms, nk)
+    launches, ms_per_call = run_phase("pipeline", phase_pipeline, et, hk, nk, card, args.profile_dir)
+    run_phase("gpu_vs_cpu", phase_gpu_vs_cpu, et, tn)
+    mb_err, mb_blocks, harness = run_phase("mbconv_kernels", phase_mbconv, mk, pm)
+    chains, chain_launches = run_phase("chain", phase_chain, mk, pc)
+    floor_err, floor, floor_plain, floor_launches = run_phase(
+        "tap_floor", phase_tap_floor, tk, tf, chains[0]["baseline_ms"], ms_per_call)
+    run_phase("predictor", phase_predictor, et, nk, card)
+    run_phase("serve", phase_serve, et, hk, nk, card)
+    kernels = {"head_pointwise": hk.head_pointwise_anchor_major,
+               "nms_suppress": nk.suppression_keep_mask,
+               "fused_mbconv_packed": mk.packed_mbconv, "fused_mbconv_rp": mk.packed_mbconv_rp,
+               "fused_mbconv_nhwc": mk.fused_mbconv_nhwc, "tap_floor": tk.tap_floor}
+    run_phase("train", phase_train, et, kernels, card, args.profile_dir)
+    _, ds = run_phase("data", phase_data, et, card)
+    cli = run_phase("train_cli", phase_train_cli, et, kernels, card, ds)
+    eval_launches = cli["eval"]["launches"]
 
     def total(key):
         return sum(t[key] for t in head_t)
@@ -1515,7 +2013,8 @@ def main() -> int:
                 "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
                 "bound_by": "bytes" if 2 * by_bytes >= tot("bound_ms") else "operations",
                 "library_ms": None, "device_ms": tot("device_ms"),
-                "module_ms": sum(b["module_ms"] for b in mb_blocks)}
+                "module_ms": sum(b["module_ms"] for b in mb_blocks),
+                "train_cli_eval_launches": eval_launches[f"fused_mbconv_{layout}"]}
 
     emit({"kernels": [
         {"name": "head_pointwise", "route": "cuda",
@@ -1524,20 +2023,22 @@ def main() -> int:
          "launches": launches["head_pointwise"], "max_abs_err": head_err,
          "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
          "bound_by": head_t[0]["bound_by"], "library_ms": total("library_ms"),
-         "device_ms": total("device_ms")},
+         "device_ms": total("device_ms"), "train_cli_eval_launches": eval_launches["head_pointwise"]},
         {"name": "nms_suppress", "route": "cuda",
          "source": "efficientdet_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "efficientdet_tpu/ops/nms_pallas.py:34",
          "launches": launches["nms_suppress"], "max_abs_err": 0.0,
          "ms": nms_t["ms"], "plain_ms": nms_t["plain_ms"], "bound_ms": nms_t["bound_ms"],
-         "bound_by": nms_t["bound_by"], "library_ms": None, "device_ms": nms_t["device_ms"]},
+         "bound_by": nms_t["bound_by"], "library_ms": None, "device_ms": nms_t["device_ms"],
+         "train_cli_eval_launches": eval_launches["nms_suppress"]},
         mbconv_row("packed", "experiments/packed_mbconv_pallas.py:201", chain_launches),
         mbconv_row("rp", "experiments/packed_mbconv_pallas.py:360", harness["rp"]),
         mbconv_row("nhwc", "experiments/mbconv_pallas.py:52", harness["nhwc"]),
         {"name": "tap_floor", "route": "cuda", "source": "efficientdet_tpu_torch/csrc/tap_floor.cu",
          "replaces": "experiments/vpu_tap_floor.py:85", "launches": floor_launches,
          "max_abs_err": floor_err, "ms": floor["kernel_ms"], "plain_ms": floor_plain,
-         "bound_ms": floor["bound_ms"], "bound_by": floor["bound_by"], "library_ms": None},
+         "bound_ms": floor["bound_ms"], "bound_by": floor["bound_by"], "library_ms": None,
+         "device_ms": floor["device_ms"], "train_cli_eval_launches": eval_launches["tap_floor"]},
     ], "note": "head_pointwise, nms_suppress: ms per main-path call at batch 128 (head: the "
                "class and the box launch together), the wrapper's call by CUDA events; "
                "device_ms the kernels alone, by torch.profiler; launches over 3 pipeline calls. "
@@ -1545,7 +2046,9 @@ def main() -> int:
                "bf16, device_ms their launches alone (torch.profiler), module_ms the port's unfused "
                "MBConvBlock there; launches: packed over the "
                "chain phase, rp and nhwc over the block harness. tap_floor: f32, taps 9, "
-               "chains 4, repeats 512 over 4 Mi elements; launches over the floor harness.",
+               "chains 4, repeats 512 over 4 Mi elements; launches over the floor harness, device_ms "
+               "its launch alone (torch.profiler). train_cli_eval_launches: each kernel's launches "
+               "during the train_cli phase's timed COCO evaluation (64 images, batch 64).",
         "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,15 @@ nvcc at first use; on CPU tensors their plain PyTorch versions run instead.
 """
 
 from .configs import AnchorConfig, BlockConfig, EvalConfig, ModelConfig, TrainConfig
+from .data import (
+    CocoDataset,
+    CsvDataset,
+    DetectionDataset,
+    DeviceDataCache,
+    PascalVocDataset,
+    batch_iterator,
+)
+from .evaluation import CocoEvaluator, evaluate_coco, evaluate_voc
 from .anchors import (
     anchor_targets,
     anchor_targets_batch,
@@ -47,5 +56,7 @@ __all__ = [
     "EfficientDet", "build_efficientdet", "fuse_for_inference", "make_predict_fn",
     "predict_pipeline", "preprocess_image", "Predictor", "BatchingPredictor",
     "PredictorOverloaded", "TrainState", "create_train_state", "make_eval_loss_fn",
-    "make_train_step", "CheckpointManager",
+    "make_train_step", "CheckpointManager", "CocoDataset", "CsvDataset", "DetectionDataset",
+    "DeviceDataCache", "PascalVocDataset", "batch_iterator", "CocoEvaluator", "evaluate_coco",
+    "evaluate_voc",
 ] + [f"efficientdet_d{i}" for i in range(8)]

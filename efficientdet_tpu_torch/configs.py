@@ -239,8 +239,7 @@ class TrainConfig:
     # Loss from the heads' per-level outputs instead of the concatenated
     # (B, A_total, C) tensors: the same math without the concatenation.
     per_level_loss: bool = True
-    # Random affine and colour augmentation inside the step (the JAX
-    # package's ops/augment.py); not ported yet.
+    # Random affine and colour augmentation inside the step (ops/augment.py).
     device_augment: bool = False
     device_augment_color: bool = True
 

@@ -40,6 +40,7 @@ from .anchors import anchor_targets_batch_compact
 from .configs import TrainConfig
 from .losses import detection_loss, detection_loss_from_levels
 from .models.detector import EfficientDet, resolve_device
+from .ops.augment import augment_batch_device
 from .ops.preprocess import preprocess_batch_fixed
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -267,17 +268,18 @@ def make_train_step(model: EfficientDet, config: TrainConfig, device=None):
 
     batch: ``images`` (B, S, S, 3), uint8 (normalised inside the step) or
     normalised float32, ``gt_boxes`` (B, G, 4), ``gt_labels`` (B, G), -1 for
-    padding; numpy or tensors. ``generator``: stochastic depth's draws (the
-    device's default generator when None). metrics: ``loss``, ``cls_loss``,
+    padding; numpy or tensors. With ``config.device_augment`` the step first
+    augments the batch on the device (ops/augment.py; ``extents`` (B, 2), the
+    visible (scaled_h, scaled_w) of each canvas, clips the boxes when the
+    batch has them), then normalises the augmenter's float32 [0, 255] images
+    as it does uint8 ones. ``generator``: the augmentation's draws first
+    (matrices, then colour factors), then stochastic depth's (the device's
+    default generator when None). metrics: ``loss``, ``cls_loss``,
     ``box_loss``, ``grad_norm`` (after the backbone's gradients are zeroed by
     ``freeze_backbone``, before the clip) and ``num_positives`` (mean per
     image), as device tensors. EMA moves on every call. The anchors follow
     the batch's image size.
     """
-    if config.device_augment:
-        raise NotImplementedError(
-            "device_augment is not ported yet: it arrives with the data slice "
-            "(ops/augment.py); augment on the host or pass device_augment=False")
     dev = _model_device(model, device)
     own = dict(model.named_parameters())
     names = list(own)
@@ -291,7 +293,14 @@ def make_train_step(model: EfficientDet, config: TrainConfig, device=None):
         if not model.training:
             model.train()
         images, boxes, labels = _batch(batch, dev)
-        if images.dtype != torch.float32:
+        if config.device_augment:
+            extents = batch.get("extents")
+            images, boxes, labels = augment_batch_device(
+                generator, images, boxes, labels,
+                extents=None if extents is None else torch.as_tensor(extents, device=dev),
+                color=config.device_augment_color)
+        # the augmenter returns float32 in [0, 255]: normalised here too
+        if images.dtype != torch.float32 or config.device_augment:
             images = preprocess_batch_fixed(images, dtype=torch.float32)
         total, aux, anchor_state = _loss(model, config, images, boxes, labels, generator)
         aux["num_positives"] = (anchor_state == 1.0).sum(dim=1).float().mean()

@@ -102,7 +102,9 @@ def test_guard_walks_the_port_experiments(tmp_path):
                  "experiments.tap_floor", "ops.mbconv_kernel", "ops.tap_floor_kernel",
                  "predict", "inference", "serve", "data.common", "utils.image",
                  "utils.checkpoint", "utils.cuda_graph", "train_lib", "losses", "anchors",
-                 "models.normalization", "models.remat", "utils.convert"):
+                 "models.normalization", "models.remat", "utils.convert", "data.csv_", "data.coco",
+                 "data.pascal", "data.augment", "data.device_cache", "ops.augment", "evaluation",
+                 "evaluation.coco_eval", "evaluation.voc", "evaluation.host_overlap", "train", "evaluate"):
         assert f"efficientdet_tpu_torch.{name}" in mods
     src = tmp_path / "probe.py"
     src.write_text("from ..experiments import packed_mbconv\nimport experiments.packed_chain\n")
@@ -153,6 +155,40 @@ def test_entry_point_raises_without_gpu(monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--image", "unused.png"])
+
+
+def test_data_evaluation_and_clis_import_without_cv2_or_pil():
+    """In a process where importing cv2 or PIL fails, the data, evaluation
+    and CLI modules import (they read images only inside load_image)."""
+    code = (
+        "import sys\n"
+        "sys.modules['cv2'] = None\n"
+        "sys.modules['PIL'] = None\n"
+        "import efficientdet_tpu_torch.data, efficientdet_tpu_torch.evaluation\n"
+        "import efficientdet_tpu_torch.train, efficientdet_tpu_torch.evaluate\n"
+        "import efficientdet_tpu_torch.data.augment, efficientdet_tpu_torch.ops.augment\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stdout + out.stderr
+
+
+def test_training_clis_raise_without_gpu(monkeypatch, tmp_path):
+    from efficientdet_tpu_torch import evaluate, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["csv", str(tmp_path / "missing.csv"), str(tmp_path / "classes.csv")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.main(["csv", str(tmp_path / "missing.csv"), str(tmp_path / "classes.csv"),
+                       "--snapshot", str(tmp_path)])
+    from efficientdet_tpu_torch.data import DeviceDataCache
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceDataCache([None], 64)  # raises before it reads the dataset
 
 
 def test_graphs_need_a_cuda_input():

@@ -411,10 +411,37 @@ def test_loss_decreases_overfit(ref):
     assert losses[-1] < losses[0] * 0.8, losses
 
 
-def test_device_augment_raises(ref):
+def test_device_augment_raises(ref, monkeypatch):
+    """``device_augment`` raised before the data slice; it now trains. With
+    identity matrices and no colour, the augmented step equals the plain one
+    on the same uint8 batch: the augmenter's float32 [0, 255] images are
+    normalised as uint8 ones are (not fed raw), and the boxes and labels
+    pass unchanged."""
+    import efficientdet_tpu_torch.ops.augment as augment
+
+    rng = np.random.RandomState(5)
+    batch = synth_batch(rng)
+    batch["images"] = rng.randint(0, 256, batch["images"].shape).astype(np.uint8)
+    batch["extents"] = np.full((2, 2), SIZE, np.float32)
+    monkeypatch.setattr(augment, "sample_transform_matrices",
+                        lambda generator, b, size, *a, **k: torch.eye(3).expand(b, 3, 3).clone())
+    out = []
+    for cfg in (et.TrainConfig(), et.TrainConfig(device_augment=True, device_augment_color=False)):
+        port = _port_model(ref)
+        state = et.create_train_state(port, cfg, device="cpu")
+        state, metrics = et.make_train_step(port, cfg, device="cpu")(state, batch)
+        out.append((metrics, state))
+    (m0, s0), (m1, s1) = out
+    for k in m0:
+        assert torch.equal(m0[k], m1[k]), k
+    for k in s0.params:
+        assert torch.equal(s0.params[k], s1.params[k]), k
+    # without the normalisation the loss would differ
+    raw = dict(batch, images=batch["images"].astype(np.float32))
     port = _port_model(ref)
-    with pytest.raises(NotImplementedError, match="data slice"):
-        et.make_train_step(port, et.TrainConfig(device_augment=True), device="cpu")
+    state = et.create_train_state(port, et.TrainConfig(), device="cpu")
+    _, m_raw = et.make_train_step(port, et.TrainConfig(), device="cpu")(state, raw)
+    assert not torch.equal(m_raw["loss"], m0["loss"])
 
 
 def test_entry_points_raise_without_gpu(ref, monkeypatch):
