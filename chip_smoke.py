@@ -75,7 +75,21 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    the bucket sizes; one POST of a PNG to a live make_http_server: a
    status line, 501 on a host without PIL, else 200 with
    predict_pipeline's detections;
-11. train: the training step (train_lib.make_train_step) at D0@512, batch
+11. export: D0@512 bf16, BN folded, batch 32 exported to a .edz artifact
+   on the card (export.save_exported: torch.export of the whole pipeline,
+   the head and NMS kernels as torch.library ops, the weights as program
+   inputs): export and load seconds, artifact, program and weights MB, the
+   kernels' launches in one artifact call (2 and 1); the loaded program
+   eager and as a CUDA graph replay against predict_pipeline on the same
+   fused model (counts and classes exact, boxes 1e-3 px, scores 1e-5;
+   whether bit for bit), ms per call (median of 20) for the three and the
+   host ms of an eager call; a fresh python3 that loads the artifact with
+   model building made to raise, runs one batch and hands the detections
+   back through numpy; a slim artifact exported on the CPU, loaded onto the
+   card and onto the CPU (the gpu_vs_cpu rule); BatchingPredictor.
+   from_artifact closed loops of 2 s at C = 1 and 64 on 480x640 sources,
+   every answer equal to predict_pipeline's detections of its source;
+12. train: the training step (train_lib.make_train_step) at D0@512, batch
    64, TrainConfig defaults, on the JAX package's tools/bench_train.py
    batch (seed 0, 12 boxes an image), in float32 (TF32 off), bf16, and
    float32 with remat: 2 warm-up and 10 timed steps, img/s, ms/step, peak memory, every step's
@@ -87,7 +101,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    the trained weights folded through the main path (both kernels);
    with --profile-dir, two profiled float32 steps (kernels and ATen
    operators by device time, the trace as train_trace.json.gz);
-12. data: 256 numpy images over the predictor phase's five shapes (1-20
+13. data: 256 numpy images over the predictor phase's five shapes (1-20
    boxes of 16-256 px, 90 classes, seed 0): batch_iterator's ms per batch
    of 64 at 512 px with workers 0, with 8 workers and the default intra-op
    threads, with 8 workers and one, and with the host augmenter; the
@@ -95,7 +109,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    MB and get_batch's ms; the device augmenter at batch 64 (ms, device ms,
    the card against the CPU on the same matrices and colour factors, two
    card runs equal); the native IoU library built and equal to numpy;
-13. train_cli: train.train_from_datasets (the CLI's loop) at D0@512 batch 64
+14. train_cli: train.train_from_datasets (the CLI's loop) at D0@512 batch 64
    f32 (TF32 off), 2 epochs of 5 steps, in four configurations: (a)
    --workers 0, (b) --workers 8, (c) --random-transform --workers 8, (d)
    --device-cache 256 --device-augment with the epoch-end COCO evaluation on
@@ -108,7 +122,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    oracle predict function at AP 1.0 through collect_detections, and
    evaluate.py's function on (d)'s snapshots giving the same AP; then
    train.main on a CSV dataset of PNG files where PIL or cv2 imports;
-14. the kernels line, the card line, and the last line,
+15. the kernels line, the card line, and the last line,
    {"ok": true, "device": {...}}.
 
 Before each phase a line {"phase": "<name>"}; a phase's failure prints
@@ -619,6 +633,31 @@ def _demangle_key(key):
     return m.group() if m else None
 
 
+def _card_vs_cpu(dets, n_images):
+    """The gpu_vs_cpu phase's end-to-end rule on ``dets = {"cuda": ...,
+    "cpu": ...}`` (CPU tensors): counts exactly; at least 98% of the card's
+    detections have a CPU detection of the same class, box within 0.01 px
+    and score within 1e-4 (ranks of near-equal scores may swap where the
+    head outputs differ in the last digits). Raises on a disagreement."""
+    import torch
+
+    matched = total = 0
+    for i in range(n_images):
+        kg, kc = int(dets["cuda"][3][i]), int(dets["cpu"][3][i])
+        total += kg
+        for j in range(kg):
+            hit = ((dets["cpu"][2][i, :kc] == dets["cuda"][2][i, j])
+                   & ((dets["cpu"][0][i, :kc] - dets["cuda"][0][i, j]).abs().amax(-1) <= 1e-2)
+                   & ((dets["cpu"][1][i, :kc] - dets["cuda"][1][i, j]).abs() <= 1e-4))
+            matched += int(hit.any())
+    rec = {"num_valid_cuda": [int(v) for v in dets["cuda"][3]],
+           "num_valid_cpu": [int(v) for v in dets["cpu"][3]],
+           "matched": matched, "total": total}
+    if not torch.equal(dets["cuda"][3], dets["cpu"][3]) or matched < 0.98 * total:
+        raise AssertionError(f"card and CPU detections differ: {rec}")
+    return rec
+
+
 def phase_gpu_vs_cpu(et, tn):
     import torch
 
@@ -670,25 +709,10 @@ def phase_gpu_vs_cpu(et, tn):
             and same_heads["num_valid_equal"] and same_heads["max_abs_dscore"] <= 1e-6):
         raise AssertionError(f"NMS on the card differs from the CPU's: {same_heads}")
 
-    # end to end: each card detection has a CPU detection of the same class,
-    # box within 0.01 px and score within 1e-4 (ranks of near-equal scores
-    # may swap where the head outputs differ in the last digits)
+    # end to end: each card detection has a CPU detection of the same class
     dets = {dev: [t.cpu() for t in et.make_predict_fn(m)(images.to(dev))]
             for dev, m in models.items()}
-    matched = total = 0
-    for i in range(images.shape[0]):
-        kg, kc = int(dets["cuda"][3][i]), int(dets["cpu"][3][i])
-        total += kg
-        for j in range(kg):
-            hit = ((dets["cpu"][2][i, :kc] == dets["cuda"][2][i, j])
-                   & ((dets["cpu"][0][i, :kc] - dets["cuda"][0][i, j]).abs().amax(-1) <= 1e-2)
-                   & ((dets["cpu"][1][i, :kc] - dets["cuda"][1][i, j]).abs() <= 1e-4))
-            matched += int(hit.any())
-    end_to_end = {"num_valid_cuda": [int(v) for v in dets["cuda"][3]],
-                  "num_valid_cpu": [int(v) for v in dets["cpu"][3]],
-                  "matched": matched, "total": total}
-    if not torch.equal(dets["cuda"][3], dets["cpu"][3]) or matched < 0.98 * total:
-        raise AssertionError(f"card and CPU detections differ: {end_to_end}")
+    end_to_end = _card_vs_cpu(dets, images.shape[0])
     # the pixel prefilter against the main path's front end on the card, in
     # float32 (the head kernel and cuDNN's 1x1 conv sum in other orders; in
     # bf16 they round one ulp apart, and logits tie, see _agree)
@@ -1283,6 +1307,212 @@ def phase_serve(et, hk, nk, card):
     return levels
 
 
+EXPORT_BATCH = SERVE_BATCH  # the serve phase's batch
+EXPORT_STEPS = 20  # timed calls of the artifact, eager and replayed, and of predict_pipeline
+EXPORT_CLIENTS = (1, 64)
+EXPORT_SECONDS = 2.0
+
+# run by the export phase in a fresh python3: loads the artifact with the op
+# registry alone (building a model or folding BNs raises), runs one batch and
+# writes the detections with numpy
+_FRESH_LOAD = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import efficientdet_tpu_torch.models.detector as det
+from efficientdet_tpu_torch.export import load_exported
+from efficientdet_tpu_torch.ops import head_kernel, nms_kernel
+
+def refuse(*args, **kwargs):
+    raise AssertionError("loading the artifact built a model")
+
+det.EfficientDet.__init__ = refuse
+det.fuse_for_inference = refuse
+predict, manifest = load_exported(sys.argv[2])
+out = predict(torch.from_numpy(np.load(sys.argv[3])).cuda())
+np.savez(sys.argv[4], *[t.cpu().numpy() for t in out])
+print(json.dumps({"head_pointwise": head_kernel.head_pointwise_anchor_major.launches,
+                  "nms_suppress": nms_kernel.suppression_keep_mask.launches}))
+"""
+
+
+def _close_detections(got, want, label):
+    """Counts and classes exact, boxes within 1e-3 px, scores within 1e-5
+    (the predictor phase's card-vs-CPU rule); returns the worst differences
+    and whether the two are equal bit for bit."""
+    got = [np.asarray(t.cpu() if hasattr(t, "cpu") else t) for t in got]
+    want = [np.asarray(t.cpu() if hasattr(t, "cpu") else t) for t in want]
+    rec = {"bit_for_bit": all(np.array_equal(g, w) for g, w in zip(got, want)),
+           "num_valid": [int(v) for v in want[3]],
+           "max_abs_dbox_px": float(np.abs(got[0] - want[0]).max()),
+           "max_abs_dscore": float(np.abs(got[1] - want[1]).max())}
+    if not (np.array_equal(got[3], want[3]) and np.array_equal(got[2], want[2])
+            and rec["max_abs_dbox_px"] <= 1e-3 and rec["max_abs_dscore"] <= 1e-5):
+        raise AssertionError(f"{label}: the detections differ: {rec}")
+    return rec
+
+
+def phase_export(et, hk, nk, card):
+    """The .edz artifact: export D0@512 bf16 (batch 32) on the card, the loaded
+    program eager and replayed against predict_pipeline, a fresh process,
+    a CPU-made artifact on the card, and BatchingPredictor.from_artifact."""
+    import dataclasses
+    import shutil
+    import zipfile
+
+    import torch
+    from efficientdet_tpu_torch import export as ex
+    from efficientdet_tpu_torch.data.common import letterbox_hostside
+    from efficientdet_tpu_torch.models.detector import init_weights
+    from efficientdet_tpu_torch.utils.cuda_graph import GraphedCall
+
+    root = os.path.join(ROOT, "efficientdet_tpu_torch", "_build", "smoke_export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    model, cfg = et.build_efficientdet(0, num_classes=90, dtype=torch.bfloat16, seed=0)
+    model = et.fuse_for_inference(model)
+    # threshold 0, as in the serve phase: all 1024 candidates valid, no empty answer
+    ec = et.EvalConfig(score_threshold=0.0)
+    t_phase = time.perf_counter()
+    rec = {"model": "D0@512, 90 classes, random weights from seed 0, BN folded, bf16",
+           "batch_size": EXPORT_BATCH, "score_threshold": 0.0}
+    threads = torch.get_num_threads()
+    try:
+        # (a) export on the card, load, one call's launches
+        path = os.path.join(root, "d0_b32.edz")
+        t0 = time.perf_counter()
+        ex.save_exported(path, model, EXPORT_BATCH, eval_config=ec)
+        rec["export_s"] = time.perf_counter() - t0
+        with zipfile.ZipFile(path) as zf:
+            infos = zf.infolist()
+        rec["artifact_mb"] = os.path.getsize(path) / 1e6
+        rec["program_mb"] = sum(i.file_size for i in infos if i.filename == "program.pt2") / 1e6
+        rec["weights_mb"] = sum(i.file_size for i in infos if i.filename.startswith("vars/")) / 1e6
+        t0 = time.perf_counter()
+        predict, manifest = ex.load_exported(path)
+        rec["load_s"] = time.perf_counter() - t0
+        rec["torch_version"] = manifest["torch_version"]
+        rng = np.random.RandomState(7)
+        size = cfg.image_size
+        images = rng.randint(0, 256, (EXPORT_BATCH, size, size, 3)).astype(np.uint8)
+        x = torch.from_numpy(images).cuda()
+        hk.head_pointwise_anchor_major.launches = 0
+        nk.suppression_keep_mask.launches = 0
+        eager = predict(x)
+        torch.cuda.synchronize()
+        launches = {"head_pointwise": hk.head_pointwise_anchor_major.launches,
+                    "nms_suppress": nk.suppression_keep_mask.launches}
+        rec["launches_one_call"] = launches
+        if launches != {"head_pointwise": 2, "nms_suppress": 1}:
+            raise AssertionError(f"export: one artifact call launched {launches}, not 2 and 1")
+
+        # (b) eager and replayed against predict_pipeline on the same fused model
+        want = et.predict_pipeline(model, x, ec)
+        rec["eager_vs_pipeline"] = _close_detections(eager, want, "artifact eager")
+        graph = GraphedCall(predict, x, pool=torch.cuda.graph_pool_handle())
+        replay = [t.clone() for t in graph(x)]
+        rec["replay_vs_pipeline"] = _close_detections(replay, want, "artifact replay")
+        device_ops, busy_ms, kernels = _traced(lambda: graph(x))
+        if not (_has(kernels, "head_pw") and _has(kernels, "nms_suppress_kernel")):
+            raise AssertionError(f"export: the replay's trace lacks a kernel: {kernels}")
+        rec.update(replay_device_ops=device_ops, replay_device_busy_ms=busy_ms,
+                   replay_port_kernels=kernels)
+
+        def synced(fn):
+            def call():
+                fn()
+                torch.cuda.synchronize()
+            return call
+
+        rec["ms"] = {"artifact_eager": _median_ms(synced(lambda: predict(x)), EXPORT_STEPS),
+                     "artifact_replay": _median_ms(synced(lambda: graph(x)), EXPORT_STEPS),
+                     "pipeline_eager": _median_ms(synced(lambda: et.predict_pipeline(model, x, ec)),
+                                                  EXPORT_STEPS)}
+        # the host's share of an eager call, without waiting for the card:
+        # the artifact's adds the input dict's checks and the graph's
+        # interpretation to the launches
+        for name, fn in (("artifact_eager", lambda: predict(x)),
+                         ("pipeline_eager", lambda: et.predict_pipeline(model, x, ec))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            rec[f"{name}_host_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+        torch.cuda.synchronize()
+        del graph
+
+        # (c) a fresh process loads the artifact and runs one batch
+        np.save(os.path.join(root, "images.npy"), images)
+        fresh = subprocess.Popen(
+            [sys.executable, "-c", _FRESH_LOAD, ROOT, path, os.path.join(root, "images.npy"),
+             os.path.join(root, "fresh.npz")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        # (d) a slim artifact made on the CPU, on the card and on the CPU, f32
+        slim_cfg = dataclasses.replace(et.ModelConfig.for_phi(0, num_classes=6, image_size=128),
+                                       bifpn_width=16, bifpn_depth=2, head_depth=2)
+        slim = init_weights(et.EfficientDet(slim_cfg), seed=0).eval()
+        slim_path = os.path.join(root, "slim_cpu.edz")
+        t0 = time.perf_counter()
+        ex.save_exported(slim_path, slim, 2)
+        slim_export_s = time.perf_counter() - t0
+        slim_images = torch.from_numpy(rng.randint(0, 256, (2, 128, 128, 3)).astype(np.uint8))
+        dets = {}
+        for key, dev in (("cuda", DEVICE), ("cpu", "cpu")):
+            run, _ = ex.load_exported(slim_path, device=dev)
+            dets[key] = [t.cpu() for t in run(slim_images.to(dev))]
+        rec["cpu_made_artifact"] = {"export_s": slim_export_s, "exported_on": "cpu",
+                                    "model": "slim D0 (width 16, depth 2), 128 px, 6 classes, f32",
+                                    **_card_vs_cpu(dets, 2)}
+
+        try:
+            log, _ = fresh.communicate(timeout=300)
+        finally:
+            if fresh.poll() is None:
+                fresh.kill()
+        if fresh.returncode != 0:
+            raise AssertionError(f"export: the fresh process failed:\n{log}")
+        with np.load(os.path.join(root, "fresh.npz")) as z:
+            fresh_out = [z[f"arr_{i}"] for i in range(4)]
+        rec["fresh_process"] = {"launches": json.loads(log.strip().splitlines()[-1]),
+                                **_close_detections(fresh_out, want, "fresh process")}
+
+        # BatchingPredictor.from_artifact: closed loops at C = 1 and 64 on 480x640 sources
+        torch.set_num_threads(1)  # serve.main's setting on the card
+        pred = et.BatchingPredictor.from_artifact(path, max_delay_ms=5.0, pipeline_depth=2)
+        try:
+            t0 = time.perf_counter()
+            pred.warmup()
+            rec["serve_warmup_s"] = time.perf_counter() - t0
+            srcs = [rng.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(16)]
+            canvases = [letterbox_hostside(im, size) for im in srcs]
+            # every request pads to the exported batch: one answer per source
+            # (batch neighbours do not change an image's detections)
+            expected = [None] * len(srcs)
+            order = [j % len(srcs) for j in range(-(-len(srcs) // EXPORT_BATCH) * EXPORT_BATCH)]
+            for start in range(0, len(order), EXPORT_BATCH):
+                idx = order[start:start + EXPORT_BATCH]
+                batch = torch.from_numpy(np.stack([canvases[j][0] for j in idx])).cuda()
+                bx, sc, cl, nv = (t.cpu().numpy() for t in et.predict_pipeline(model, batch, ec))
+                for r, j in enumerate(idx):
+                    k = int(nv[r])
+                    expected[j] = expected[j] or [(bx[r, :k] / canvases[j][1], sc[r, :k], cl[r, :k])]
+            rec["serve"] = {"buckets": pred._buckets, "source": [480, 640], "intraop_threads": 1,
+                            "levels": [_closed_loop(pred, srcs, expected, c, EXPORT_SECONDS)
+                                       for c in EXPORT_CLIENTS],
+                            "answers": "each equal to predict_pipeline's detections of its source"}
+        finally:
+            pred.close()
+    finally:
+        torch.set_num_threads(threads)
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "export", **rec, "elapsed_s": time.perf_counter() - t_phase, "card": card})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _bench_train_batch(size, batch, seed=0):
     """The JAX package's tools/bench_train.py batch: uint8 noise images,
     TRAIN_GT boxes an image of 16-64 px, 90 classes, TRAIN_MAX_GT slots; the
@@ -1525,7 +1755,7 @@ DATA_BATCHES = 3  # timed batches per pipeline configuration, after one warm-up
 CLI_EPOCHS = 2
 CLI_STEPS = 5
 EVAL_IMAGES = 64
-DEVICE = "cuda"  # the data phases' device (a rehearsal on the CPU sets "cpu")
+DEVICE = "cuda"  # the data and export phases' device (a rehearsal on the CPU sets "cpu")
 
 
 def _smoke_dataset(et, n=DATA_IMAGES, seed=0):
@@ -1990,6 +2220,7 @@ def main() -> int:
         "tap_floor", phase_tap_floor, tk, tf, chains[0]["baseline_ms"], ms_per_call)
     run_phase("predictor", phase_predictor, et, nk, card)
     run_phase("serve", phase_serve, et, hk, nk, card)
+    export_launches = run_phase("export", phase_export, et, hk, nk, card)
     kernels = {"head_pointwise": hk.head_pointwise_anchor_major,
                "nms_suppress": nk.suppression_keep_mask,
                "fused_mbconv_packed": mk.packed_mbconv, "fused_mbconv_rp": mk.packed_mbconv_rp,
@@ -2023,14 +2254,16 @@ def main() -> int:
          "launches": launches["head_pointwise"], "max_abs_err": head_err,
          "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
          "bound_by": head_t[0]["bound_by"], "library_ms": total("library_ms"),
-         "device_ms": total("device_ms"), "train_cli_eval_launches": eval_launches["head_pointwise"]},
+         "device_ms": total("device_ms"), "train_cli_eval_launches": eval_launches["head_pointwise"],
+         "export_launches": export_launches["head_pointwise"]},
         {"name": "nms_suppress", "route": "cuda",
          "source": "efficientdet_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "efficientdet_tpu/ops/nms_pallas.py:34",
          "launches": launches["nms_suppress"], "max_abs_err": 0.0,
          "ms": nms_t["ms"], "plain_ms": nms_t["plain_ms"], "bound_ms": nms_t["bound_ms"],
          "bound_by": nms_t["bound_by"], "library_ms": None, "device_ms": nms_t["device_ms"],
-         "train_cli_eval_launches": eval_launches["nms_suppress"]},
+         "train_cli_eval_launches": eval_launches["nms_suppress"],
+         "export_launches": export_launches["nms_suppress"]},
         mbconv_row("packed", "experiments/packed_mbconv_pallas.py:201", chain_launches),
         mbconv_row("rp", "experiments/packed_mbconv_pallas.py:360", harness["rp"]),
         mbconv_row("nhwc", "experiments/mbconv_pallas.py:52", harness["nhwc"]),
@@ -2048,7 +2281,9 @@ def main() -> int:
                "chain phase, rp and nhwc over the block harness. tap_floor: f32, taps 9, "
                "chains 4, repeats 512 over 4 Mi elements; launches over the floor harness, device_ms "
                "its launch alone (torch.profiler). train_cli_eval_launches: each kernel's launches "
-               "during the train_cli phase's timed COCO evaluation (64 images, batch 64).",
+               "during the train_cli phase's timed COCO evaluation (64 images, batch 64). "
+               "export_launches: the head and NMS kernels' launches in one eager call of the "
+               "export phase's .edz program (D0@512 bf16, batch 32).",
         "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ from .data import (
     batch_iterator,
 )
 from .evaluation import CocoEvaluator, evaluate_coco, evaluate_voc
+from .export import load_exported, save_exported
 from .anchors import (
     anchor_targets,
     anchor_targets_batch,
@@ -58,5 +59,5 @@ __all__ = [
     "PredictorOverloaded", "TrainState", "create_train_state", "make_eval_loss_fn",
     "make_train_step", "CheckpointManager", "CocoDataset", "CsvDataset", "DetectionDataset",
     "DeviceDataCache", "PascalVocDataset", "batch_iterator", "CocoEvaluator", "evaluate_coco",
-    "evaluate_voc",
+    "evaluate_voc", "load_exported", "save_exported",
 ] + [f"efficientdet_d{i}" for i in range(8)]

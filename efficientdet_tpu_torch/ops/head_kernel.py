@@ -12,8 +12,12 @@ Counterpart of the JAX package's ``ops/head_pallas.py``. For pixel rows
 the bias only and must never be selected. Row ``m = b*H*W + p`` is pixel
 ``p`` of image ``b`` (per level, levels concatenated).
 
-:func:`head_pointwise_anchor_major` launches ``csrc/head_pointwise.cu`` for a
-CUDA tensor and takes :func:`head_pointwise_reference` only for a CPU one.
+:func:`head_pointwise_anchor_major` calls the custom op
+``efficientdet_tpu_torch::head_pointwise`` (registered here with
+``torch.library``, so that ``torch.export`` keeps it as one node of the
+program): its CUDA implementation launches ``csrc/head_pointwise.cu``, its
+CPU implementation is :func:`head_pointwise_reference`, and any other device
+raises.
 In bf16 the launcher picks one of two plans from the widths
 (:func:`bf16_plan`): ``"resident"`` (Cin <= 64) keeps every anchor's
 weights in shared memory (D0's class and box launches), ``"streamed"``
@@ -54,10 +58,31 @@ def head_pointwise_anchor_major(
     x2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, num_anchors: int
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """(M, Cin) @ (Cin, A*out) + bias -> (z (A, Mp, out), amax (A, Mp), M)."""
-    if x2d.device.type == "cpu":
-        return head_pointwise_reference(x2d, kernel, bias, num_anchors)
-    if x2d.device.type != "cuda":
+    if x2d.device.type not in ("cpu", "cuda"):
         raise ValueError(f"head_pointwise_anchor_major: unsupported device {x2d.device}")
+    z, amax = torch.ops.efficientdet_tpu_torch.head_pointwise(x2d, kernel, bias, num_anchors)
+    return z, amax, x2d.shape[0]
+
+
+@torch.library.custom_op("efficientdet_tpu_torch::head_pointwise", mutates_args=(),
+                         device_types="cpu")
+def _head_pointwise_op(x2d: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                       num_anchors: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    z, amax, _ = head_pointwise_reference(x2d, kernel, bias, num_anchors)
+    return z, amax
+
+
+@_head_pointwise_op.register_fake
+def _head_pointwise_fake(x2d, kernel, bias, num_anchors):
+    m = x2d.shape[0]
+    mp = m + (-m) % ROW_TILE
+    out_per = kernel.shape[-1] // num_anchors
+    return (x2d.new_empty((num_anchors, mp, out_per)), x2d.new_empty((num_anchors, mp)))
+
+
+@_head_pointwise_op.register_kernel("cuda")
+def _head_pointwise_cuda(x2d, kernel, bias, num_anchors):
+    """Launch csrc/head_pointwise.cu on the current stream."""
     from . import cuda_build
 
     m, cin = x2d.shape
@@ -99,7 +124,7 @@ def head_pointwise_anchor_major(
         )
     cuda_build.check(lib, "head_pointwise", err)
     head_pointwise_anchor_major.launches += 1
-    return z, amax, m
+    return z, amax
 
 
 head_pointwise_anchor_major.launches = 0

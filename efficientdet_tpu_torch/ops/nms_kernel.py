@@ -6,10 +6,13 @@ candidates ``boxes (B, K, 4)`` float32 xyxy, ``classes (B, K)`` int32 and
 ``(B, K)`` bool: the fixpoint of ``keep[i] = valid[i] and not any_{j<i}
 keep[j] and IoU(j, i) > t and class[j] == class[i]``.
 
-:func:`suppression_keep_mask` launches ``csrc/nms_suppress.cu`` (one block
-per image: a bit-packed mask built in shared memory, then a word-blocked
-greedy scan) for CUDA tensors and takes :func:`suppression_keep_mask_reference`
-only for CPU ones.
+:func:`suppression_keep_mask` calls the custom op
+``efficientdet_tpu_torch::nms_keep_mask`` (registered here with
+``torch.library``, so that ``torch.export`` keeps it as one node of the
+program): its CUDA implementation launches ``csrc/nms_suppress.cu`` (one
+block per image: a bit-packed mask built in shared memory, then a
+word-blocked greedy scan), its CPU implementation is
+:func:`suppression_keep_mask_reference`, and any other device raises.
 """
 
 from __future__ import annotations
@@ -68,10 +71,27 @@ def suppression_keep_mask(
     iou_threshold: float = 0.5,
 ) -> torch.Tensor:
     """Greedy per-class NMS keep mask (B, K) bool for score-sorted candidates."""
-    if boxes.device.type == "cpu":
-        return suppression_keep_mask_reference(boxes, classes, valid, iou_threshold)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"suppression_keep_mask: unsupported device {boxes.device}")
+    return torch.ops.efficientdet_tpu_torch.nms_keep_mask(
+        boxes, classes, valid, float(iou_threshold))
+
+
+@torch.library.custom_op("efficientdet_tpu_torch::nms_keep_mask", mutates_args=(),
+                         device_types="cpu")
+def _nms_keep_mask_op(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor,
+                      iou_threshold: float) -> torch.Tensor:
+    return suppression_keep_mask_reference(boxes, classes, valid, iou_threshold)
+
+
+@_nms_keep_mask_op.register_fake
+def _nms_keep_mask_fake(boxes, classes, valid, iou_threshold):
+    return valid.new_empty(valid.shape, dtype=torch.bool)
+
+
+@_nms_keep_mask_op.register_kernel("cuda")
+def _nms_keep_mask_cuda(boxes, classes, valid, iou_threshold):
+    """Launch csrc/nms_suppress.cu on the current stream."""
     from . import cuda_build
 
     b, k = boxes.shape[:2]

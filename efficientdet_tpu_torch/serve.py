@@ -1,19 +1,20 @@
 """Micro-batching server over the batched pipeline, and its HTTP endpoint.
 
-Counterpart of the JAX package's ``serve.py`` (``from_artifact`` and
-``--edz`` wait for the export slice):
+Counterpart of the JAX package's ``serve.py``:
 
 * :class:`BatchingPredictor`: concurrent callers submit single images; a
   dispatcher thread packs them into fixed-shape batches, padded to the
   smallest power-of-two bucket that fits, and runs the batched pipeline
-  (normalise -> forward -> decode -> NMS); a resolver thread fetches the
+  (normalise -> forward -> decode -> NMS), or serves from a one-file
+  ``.edz`` artifact (:meth:`BatchingPredictor.from_artifact`, export.py:
+  one bucket, the exported batch); a resolver thread fetches the
   results and resolves each caller's future with boxes in source pixels.
   Device compute overlaps the transfer of results (``pipeline_depth``), a
   bounded queue sheds overload, and crash guards fail callers instead of
   hanging them.
-* ``python -m efficientdet_tpu_torch.serve``: a stdlib HTTP endpoint (POST
-  /predict with a JPEG/PNG body -> JSON detections; 501 on a host without
-  PIL, which decodes the body).
+* ``python -m efficientdet_tpu_torch.serve [--edz model.edz]``: a stdlib
+  HTTP endpoint (POST /predict with a JPEG/PNG body -> JSON detections; 501
+  on a host without PIL, which decodes the body).
 
 Every request is letterboxed on the host to the model resolution, so on the
 card one CUDA graph per bucket serves all traffic. There:
@@ -48,7 +49,7 @@ import torch
 
 from .configs import EvalConfig
 from .data.common import letterbox_hostside
-from .models.detector import predict_pipeline
+from .models.detector import predict_pipeline, resolve_device
 from .utils.cuda_graph import GraphedCall
 
 
@@ -122,12 +123,61 @@ class BatchingPredictor:
         bucket_batches: bool = True,
     ):
         self.model = model
-        self.device = next(model.parameters()).device
+        self.manifest = None
         self.batch_size = batch_size
         self.max_delay = max_delay_ms / 1e3
         self.size = model.config.image_size
         self.eval_config = eval_config or EvalConfig()
         self._buckets = _bucket_sizes(batch_size) if bucket_batches else [batch_size]
+        self._start_device(next(model.parameters()).device,
+                           lambda x: predict_pipeline(self.model, x, self.eval_config))
+        self._start_runtime(max_pending, pipeline_depth)
+
+    @classmethod
+    def from_artifact(
+        cls,
+        path: str,
+        max_delay_ms: float = 5.0,
+        max_pending: Optional[int] = None,
+        pipeline_depth: int = 2,
+        device=None,
+    ) -> "BatchingPredictor":
+        """Serve directly from a one-file ``.edz`` export artifact.
+
+        The artifact (``efficientdet_tpu_torch.export.save_exported``)
+        carries the exported predict program, its weights and the eval
+        config: no model build, checkpoint restore or BN folding happens on
+        the serving host, and ``batch_size`` and the image size come from
+        the manifest (the exported program's batch is static, so there is
+        one bucket). ``device``: None means the GPU, raising without one;
+        on the card the bucket is one CUDA graph of the loaded program.
+        """
+        from .export import load_exported
+
+        device = resolve_device(device)
+        predict, manifest = load_exported(path, device)
+        if not manifest.get("preprocess", True):
+            raise ValueError(
+                "artifact was exported with preprocess=False; the serving "
+                "path submits uint8 letterboxed canvases: re-export with "
+                "preprocess=True"
+            )
+        self = cls.__new__(cls)
+        self.model = None  # the weights live inside the loaded program's closure
+        self.manifest = manifest
+        self.batch_size = int(manifest["batch_size"])
+        self.max_delay = max_delay_ms / 1e3
+        self.size = int(manifest["model"]["image_size"])
+        self.eval_config = EvalConfig(**manifest["eval_config"])
+        self._buckets = [self.batch_size]
+        self._start_device(device, predict)
+        self._start_runtime(max_pending, pipeline_depth)
+        return self
+
+    def _start_device(self, device: torch.device, call):
+        """``call(images)``: the pipeline on one packed uint8 batch."""
+        self.device = device
+        self._call = call
         # staging + dispatch by the worker, against warmup() on another thread
         self._device_lock = threading.Lock()
         self._graphs: dict = {}
@@ -135,7 +185,6 @@ class BatchingPredictor:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
         self._predict = self._run_batch
-        self._start_runtime(max_pending, pipeline_depth)
 
     def _start_runtime(self, max_pending, pipeline_depth):
         if max_pending is None:
@@ -166,8 +215,7 @@ class BatchingPredictor:
         if graph is None:
             example = torch.zeros((bucket, self.size, self.size, 3), dtype=torch.uint8,
                                   device=self.device)
-            graph = GraphedCall(lambda x: predict_pipeline(self.model, x, self.eval_config),
-                                example, pool=self._pool)
+            graph = GraphedCall(self._call, example, pool=self._pool)
             self._graphs[bucket] = graph
         return graph
 
@@ -176,7 +224,7 @@ class BatchingPredictor:
         :meth:`_stage`; returns (boxes, scores, classes, num_valid), each
         read by ``np.asarray``. On the card this dispatches and returns."""
         if self.device.type != "cuda":
-            return predict_pipeline(self.model, images, self.eval_config)
+            return self._call(images)
         graph = self._graph(images.shape[0])  # captured at the bucket's first batch
         event = torch.cuda.Event()
         with torch.cuda.stream(self._stream):
@@ -491,6 +539,10 @@ def main(argv=None):
     import argparse
 
     p = argparse.ArgumentParser(description="Serve an EfficientDet model.")
+    p.add_argument("--edz", default=None,
+                   help="serve from a one-file .edz export artifact (export.py); "
+                   "--phi/--checkpoint/--num-classes/--batch-size/--score-threshold "
+                   "then come from the artifact's manifest and may not be given")
     p.add_argument("--phi", type=int, default=0, choices=range(8))
     p.add_argument("--checkpoint", default=None, help="a save_params file")
     p.add_argument("--num-classes", type=int, default=90)
@@ -513,32 +565,61 @@ def main(argv=None):
     p.add_argument("--device", default=None, help="default: the GPU; 'cpu' to run on the CPU")
     args = p.parse_args(argv)
 
-    from .models.detector import build_efficientdet, fuse_for_inference
-    from .utils.checkpoint import load_params
-
-    model, _ = build_efficientdet(args.phi, num_classes=args.num_classes,
-                                  dtype=torch.bfloat16, device=args.device)
-    if next(model.parameters()).device.type == "cuda":
+    if args.edz:
+        # the manifest owns the model: a model flag beside --edz would be
+        # dropped without a word, so it is an error (against the defaults)
+        ignored = [
+            flag
+            for flag, value, default in (
+                ("--phi", args.phi, 0),
+                ("--checkpoint", args.checkpoint, None),
+                ("--num-classes", args.num_classes, 90),
+                ("--batch-size", args.batch_size, 8),
+                ("--score-threshold", args.score_threshold, 0.3),
+            )
+            if value != default
+        ]
+        if ignored:
+            p.error(f"--edz takes the model from the artifact manifest; "
+                    f"conflicting flags: {', '.join(ignored)}")
+    device = resolve_device(args.device)
+    if device.type == "cuda":
         # the host only letterboxes and packs, one request a thread: one
         # intra-op thread each, not a team per concurrent resize
         torch.set_num_threads(1)
-    if args.checkpoint:
-        load_params(args.checkpoint, model)
-    predictor = BatchingPredictor(
-        fuse_for_inference(model),
-        batch_size=args.batch_size,
-        max_delay_ms=args.max_delay_ms,
-        eval_config=EvalConfig(score_threshold=args.score_threshold),
-        max_pending=args.max_pending,
-        pipeline_depth=args.pipeline_depth,
-        bucket_batches=not args.no_bucket_batches,
-    )
+    if args.edz:
+        predictor = BatchingPredictor.from_artifact(
+            args.edz,
+            max_delay_ms=args.max_delay_ms,
+            max_pending=args.max_pending,
+            pipeline_depth=args.pipeline_depth,
+            device=device,
+        )
+        name = f"{args.edz} (EfficientDet-D{predictor.manifest['model']['phi']})"
+    else:
+        from .models.detector import build_efficientdet, fuse_for_inference
+        from .utils.checkpoint import load_params
+
+        model, _ = build_efficientdet(args.phi, num_classes=args.num_classes,
+                                      dtype=torch.bfloat16, device=device)
+        if args.checkpoint:
+            load_params(args.checkpoint, model)
+        predictor = BatchingPredictor(
+            fuse_for_inference(model),
+            batch_size=args.batch_size,
+            max_delay_ms=args.max_delay_ms,
+            eval_config=EvalConfig(score_threshold=args.score_threshold),
+            max_pending=args.max_pending,
+            pipeline_depth=args.pipeline_depth,
+            bucket_batches=not args.no_bucket_batches,
+        )
+        name = f"EfficientDet-D{args.phi}"
     if not args.skip_warmup:
         print(f"warming up {len(predictor._buckets)} batch bucket(s) {predictor._buckets} ...",
               flush=True)
         predictor.warmup()
     server = make_http_server(predictor, port=args.port, max_request_mb=args.max_request_mb)
-    print(f"serving EfficientDet-D{args.phi} on :{args.port}/predict", flush=True)
+    print(f"serving {name} on :{args.port}/predict", flush=True)
     server.serve_forever()
 
 

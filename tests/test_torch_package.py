@@ -315,3 +315,43 @@ def test_predictor_threads_at_two_shapes_on_the_gpu():
     assert not any(t.is_alive() for t in threads)
     assert not errors
     assert sorted(p._run_cache) == [(120, 200), (200, 120)]
+
+
+@pytest.mark.cuda
+def test_ops_launch_their_kernels_and_export_on_the_gpu(tmp_path):
+    """On a GPU: each custom op launches its kernel (its wrapper's counter
+    goes up by one a call), and a tiny exported function of both round-trips
+    through torch.export.save/load with the same results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs the export at full size")
+    from efficientdet_tpu_torch.ops import head_kernel as hk
+    from efficientdet_tpu_torch.ops import nms_kernel as nk
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(700, 64, generator=g).cuda()
+    k = torch.randn(64, 9 * 6, generator=g).cuda() * 0.1
+    b = torch.randn(9 * 6, generator=g).cuda()
+    xy = torch.rand(2, 100, 2, generator=g) * 200
+    boxes = torch.cat([xy, xy + 10 + torch.rand(2, 100, 2, generator=g) * 50], -1).cuda()
+    cls = torch.randint(0, 3, (2, 100), generator=g).int().cuda()
+    valid = (torch.rand(2, 100, generator=g) > 0.1).cuda()
+    before = (hk.head_pointwise_anchor_major.launches, nk.suppression_keep_mask.launches)
+    torch.ops.efficientdet_tpu_torch.head_pointwise(x, k, b, 9)
+    torch.ops.efficientdet_tpu_torch.nms_keep_mask(boxes, cls, valid, 0.5)
+    assert (hk.head_pointwise_anchor_major.launches, nk.suppression_keep_mask.launches) == (
+        before[0] + 1, before[1] + 1)
+
+    class Both(torch.nn.Module):
+        def forward(self, x, k, b, boxes, cls, valid):
+            z, amax, _ = hk.head_pointwise_anchor_major(x, k, b, 9)
+            return z, amax, nk.suppression_keep_mask(boxes, cls, valid, 0.5)
+
+    args = (x, k, b, boxes, cls, valid)
+    path = str(tmp_path / "both.pt2")
+    torch.export.save(torch.export.export(Both(), args), path)
+    got = torch.export.load(path).module()(*args)
+    want = Both()(*args)
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+    assert hk.head_pointwise_anchor_major.launches == before[0] + 3
+    assert nk.suppression_keep_mask.launches == before[1] + 3

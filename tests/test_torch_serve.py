@@ -14,6 +14,7 @@ import sys
 import threading
 import time
 import types
+import zipfile
 
 import numpy as np
 import pytest
@@ -366,10 +367,72 @@ def test_served_detections_equal_predict_pipeline():
     np.testing.assert_array_equal(lone[1], s1[0, :k].numpy())
 
 
+@pytest.fixture(scope="module")
+def tiny_artifact(tmp_path_factory):
+    cfg = dataclasses.replace(et.ModelConfig.for_phi(0, num_classes=4, image_size=128),
+                              bifpn_width=8, bifpn_depth=1, head_depth=1)
+    model = et.models.detector.init_weights(et.EfficientDet(cfg), seed=0).eval()
+    ec = et.EvalConfig(score_threshold=0.0101)
+    path = str(tmp_path_factory.mktemp("edz") / "tiny.edz")
+    et.save_exported(path, model, 2, eval_config=ec)
+    return path, model, ec
+
+
+def test_from_artifact_matches_the_fused_pipeline(tiny_artifact):
+    """Serving from a .edz artifact equals predict_pipeline on the fused
+    model, on a letterboxed image; the geometry and the eval config come
+    from the manifest."""
+    path, model, ec = tiny_artifact
+    pred = BatchingPredictor.from_artifact(path, max_delay_ms=1.0, device="cpu")
+    img = _img(1, (90, 128))
+    try:
+        assert pred.batch_size == 2 and pred.size == 128 and pred._buckets == [2]
+        assert pred.manifest["model"]["phi"] == 0 and pred.model is None
+        assert pred.eval_config == ec
+        boxes, scores, classes = pred.predict_sync(img, timeout=120)
+    finally:
+        pred.close()
+    canvas, scale = letterbox_hostside(img, 128)
+    batch = torch.from_numpy(np.stack([canvas, np.zeros_like(canvas)]))
+    b, s, c, n = et.predict_pipeline(et.fuse_for_inference(model), batch, ec)
+    k = int(n[0])
+    assert k > 0
+    np.testing.assert_array_equal(boxes, b[0, :k].numpy() / scale)
+    np.testing.assert_array_equal(scores, s[0, :k].numpy())
+    np.testing.assert_array_equal(classes, c[0, :k].numpy())
+
+
+def test_from_artifact_refuses_an_artifact_without_preprocess(tiny_artifact, tmp_path):
+    raw = str(tmp_path / "raw.edz")
+    with zipfile.ZipFile(tiny_artifact[0]) as zin, zipfile.ZipFile(raw, "w") as zout:
+        for name in zin.namelist():
+            data = zin.read(name)
+            if name == "manifest.json":
+                data = json.dumps({**json.loads(data), "preprocess": False})
+            zout.writestr(name, data)
+    with pytest.raises(ValueError, match="preprocess=False"):
+        BatchingPredictor.from_artifact(raw, device="cpu")
+
+
+@pytest.mark.parametrize("flag,value", [("--phi", "3"), ("--checkpoint", "ck.pt"),
+                                        ("--num-classes", "20"), ("--batch-size", "4"),
+                                        ("--score-threshold", "0.5")])
+def test_edz_conflicts_with_each_model_flag(flag, value, capsys):
+    with pytest.raises(SystemExit) as e:
+        main(["--edz", "unused.edz", flag, value])
+    assert e.value.code == 2  # an argparse error, not a crash
+    err = capsys.readouterr().err
+    assert flag in err and "artifact manifest" in err
+
+
 def test_server_raises_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--port", "0", "--edz", "unused.edz"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchingPredictor.from_artifact("unused.edz")
 
 
 # -- the HTTP surface --------------------------------------------------------
