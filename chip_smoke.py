@@ -122,7 +122,24 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    oracle predict function at AP 1.0 through collect_detections, and
    evaluate.py's function on (d)'s snapshots giving the same AP; then
    train.main on a CSV dataset of PNG files where PIL or cv2 imports;
-15. the kernels line, the card line, and the last line,
+15. parallel: data and spatial parallelism (parallel/). In this process,
+   NCCL at world size 1, D0@512: make_sharded_predict_fn (bf16, BN folded,
+   batch 128) equal to make_predict_fn bit for bit, with img/s beside the
+   plain call's and phase pipeline's; make_sharded_train_step (f32, TF32
+   off, batch 64) against make_train_step (the tier-1 step tolerances,
+   whether bit for bit), ms/step beside the plain step's and phase train's;
+   the spatial predict and step against the serial ones. Then two gloo ranks
+   on the card through parallel/launch.py: the sharded step on a global
+   batch of 16 and a spatial step on 2 images against the one-process steps
+   (parallel/tolerances.py; the raw gradients against a float64 one-process
+   step, and both steps again in float64 against it at FLOAT64_SCALE of the
+   tolerances), make_spatial_predict_fn (f32, batch 2) against
+   predict_pipeline (counts and classes exact, boxes 1e-3 px, scores 1e-5),
+   the spatial eval-mode gradients against the serial ones (rtol 1e-4, atol
+   1e-6), each rank's peak memory beside one process's, a DeviceDataCache of
+   37 images split over the ranks against the unsharded cache; one record a
+   check, the phase's seconds and the head and NMS launches;
+16. the kernels line, the card line, and the last line,
    {"ok": true, "device": {...}}.
 
 Before each phase a line {"phase": "<name>"}; a phase's failure prints
@@ -2171,6 +2188,450 @@ def _train_cli_files(et_train, ds, build):
     return out
 
 
+# phase parallel: data and spatial parallelism (parallel/)
+PAR_PREDICT_BATCH = BENCH_BATCH  # sharded predict at world size 1, bf16, BN folded
+PAR_TRAIN_BATCH = TRAIN_BATCH  # sharded train step at world size 1, f32
+PAR_TRAIN_STEPS = 4  # timed steps (after the compared one and a warm-up), sharded and one-process
+PAR_RANKS = 2  # gloo ranks on the one card
+PAR_GLOBAL_BATCH = 16  # the two-rank sharded step's global batch
+PAR_SPATIAL_BATCH = 2  # spatial predict and step
+PAR_CACHE_IMAGES = 37  # an odd pool: the sharded cache wrap-pads it
+PAR_TIMEOUT = 420  # seconds the two ranks may take, start-up included
+
+
+def _drawn_d0(et, device, seed=0, dtype=None):
+    """D0@512, 90 classes, every weight and BN statistic drawn with numpy
+    (``_slim_state_dict``: statistics away from the identity, so that the
+    steps' BN statistics are not float32 noise around 0). ``dtype``
+    float64: computed and held in float64, the same drawn values."""
+    import torch
+
+    dtype = dtype or torch.float32
+    model, _ = et.build_efficientdet(0, num_classes=90, seed=seed, device=device, dtype=dtype)
+    model.to(dtype).load_state_dict(_slim_state_dict(model, seed))
+    return model
+
+
+def _step_outputs(state, metrics):
+    """What a step leaves, on the host: metrics, Adam's first moments (0.1
+    g after one step), BN statistics and parameters."""
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: v.detach().cpu() for k, v in state.opt_state["mu"].items()},
+            {k: v.detach().cpu() for k, v in state.batch_stats.items()
+             if not k.endswith("num_batches_tracked")},
+            {k: v.detach().cpu() for k, v in state.params.items()})
+
+
+def _compare_steps(got, want, scale=1.0):
+    """Two ``_step_outputs`` by the CPU tests' rules
+    (efficientdet_tpu_torch/parallel/tolerances.py ``step_errors``; ``scale``
+    FLOAT64_SCALE for float64 steps): each error over its tolerance (<= 1
+    holds), the worst gradient leaf with its largest |g| and the model's,
+    and whether the parameters are equal bit for bit."""
+    import torch
+
+    from efficientdet_tpu_torch.configs import TrainConfig
+    from efficientdet_tpu_torch.parallel.tolerances import step_errors
+
+    cmp = step_errors(got, want, lr=TrainConfig().learning_rate, scale=scale)
+    mu = want[1]
+    cmp["grad_worst_leaf_max"] = float(mu[cmp["grad_worst_leaf"]].abs().max()) / 0.1
+    cmp["model_max_grad"] = max(float(v.abs().max()) for v in mu.values()) / 0.1
+    cmp["params_bit_for_bit"] = all(torch.equal(got[3][k], v) for k, v in want[3].items())
+    return cmp
+
+
+def _step_ok(cmp):
+    """A float32 step against another in everything but the raw gradient:
+    at D0@512 float32 regrouping alone moves one BiFPN leaf's gradient past
+    the slim model's tolerance (PERF.md, PR 9), so the two-rank steps hold
+    their gradients against a float64 step instead (``grad_against_exact``),
+    and the world-size-1 steps at batch 64, which have no float64 reference
+    (about twice their 43 GB), report theirs."""
+    from efficientdet_tpu_torch.parallel.tolerances import step_holds
+
+    return step_holds(cmp, ("loss", "grad_norm", "bn_stats", "params"))
+
+
+def _close_dets(got, want, box_tol=1e-3, score_tol=1e-5):
+    """Counts and classes exact, boxes and scores within the gpu_vs_cpu rule;
+    whether bit for bit."""
+    import torch
+
+    got = [t.cpu() for t in got]
+    want = [t.cpu() for t in want]
+    box = float((got[0] - want[0]).abs().max())
+    score = float((got[1].float() - want[1].float()).abs().max())
+    rec = {"counts_classes_exact": bool(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])),
+           "box_err_px": box, "score_err": score,
+           "bit_for_bit": all(torch.equal(a, b) for a, b in zip(got, want))}
+    rec["ok"] = rec["counts_classes_exact"] and box <= box_tol and score <= score_tol
+    return rec
+
+
+def _eval_grads(et, host, mesh=None):
+    """Eval-mode (running BN) gradients of the detection loss of ``host``'s
+    batch at D0@512 (the drawn weights): through ``band_loss`` with the
+    activations in height bands, summed over the ranks, when a mesh is
+    given (tests/test_train.py::TestSpatialTrain's setup), else the
+    one-process loss. By parameter name, on the host."""
+    import torch
+
+    from efficientdet_tpu_torch.ops.preprocess import preprocess_batch_fixed
+    from efficientdet_tpu_torch.parallel import collectives
+    from efficientdet_tpu_torch.parallel.context import ParallelContext, parallel_context
+    from efficientdet_tpu_torch.parallel.spatial import band_loss
+    from efficientdet_tpu_torch.train_lib import _loss
+
+    device = DEVICE if mesh is None else mesh.device
+    model = _drawn_d0(et, device)
+    tc = et.TrainConfig(batch_size=len(host["images"]), max_gt_boxes=TRAIN_MAX_GT)
+    b = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    images = preprocess_batch_fixed(b["images"])
+    params = list(model.parameters())
+    if mesh is None:
+        total = _loss(model, tc, images, b["gt_boxes"], b["gt_labels"], None)[0]
+        grads = torch.autograd.grad(total, params)
+    else:
+        ctx = ParallelContext(mesh, "spatial", images.shape[1])
+        with parallel_context(ctx):
+            total = band_loss(model, tc, images, b["gt_boxes"], b["gt_labels"], None, ctx)[0]
+            grads = torch.autograd.grad(total, params)
+        grads = collectives.all_reduce_grads(grads, mesh.group)
+        total = collectives.sum_over_ranks([total.detach().reshape(1)], mesh.group)[0][0]
+    names = [k for k, _ in model.named_parameters()]
+    return ({k: g.cpu() for k, g in zip(names, grads)} if mesh is None
+            else ({k: g.cpu() for k, g in zip(names, grads)}, float(total)))
+
+
+def _fresh_peak():
+    """Reset the card's peak-memory counter; the bytes this process holds
+    now, which ``_added_peak_gb`` subtracts (a long-lived process and a
+    fresh rank then read the same thing: what the measured work added)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _added_peak_gb(held):
+    import torch
+
+    return (torch.cuda.max_memory_allocated() - held) / 1e9
+
+
+def _parallel_rank(mesh, global_batch, spatial_batch, cache_indices):
+    """One of phase parallel's two gloo ranks on the card: the sharded step
+    at D0@512 on its rows of ``global_batch``, spatial predict and one
+    spatial step on ``spatial_batch``, its share of a DeviceDataCache; each
+    with the peak memory it added to what this process held before it; the
+    two steps again in float64; the head and NMS launches."""
+    import torch
+
+    import efficientdet_tpu_torch as et
+    import efficientdet_tpu_torch.ops.head_kernel as hk
+    import efficientdet_tpu_torch.ops.nms_kernel as nk
+    from efficientdet_tpu_torch.parallel import (make_sharded_train_step, make_spatial_predict_fn,
+                                                 make_spatial_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hk.head_pointwise_anchor_major.launches = 0
+    nk.suppression_keep_mask.launches = 0
+    out = {"rank": mesh.rank, "backend": mesh.backend}
+    dev = mesh.device
+
+    def train(make, batch, dtype=None):
+        model = _drawn_d0(et, dev, dtype=dtype).train()
+        tc = et.TrainConfig(batch_size=len(batch["images"]), max_gt_boxes=TRAIN_MAX_GT)
+        step = make(model, tc, mesh)  # rank 0's weights, then the state made from them
+        state = et.create_train_state(model, tc, dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        return _step_outputs(state, m)
+
+    lo, hi = mesh.rows(len(global_batch["images"]))
+    local = {k: v[lo:hi].to(dev) for k, v in global_batch.items()}
+    held = _fresh_peak()
+    t0 = time.perf_counter()
+    out["sharded"] = train(make_sharded_train_step, local)
+    out["sharded_s"] = time.perf_counter() - t0
+    out["sharded_peak_gb"] = _added_peak_gb(held)
+    out["sharded_f64"] = train(make_sharded_train_step, local, torch.float64)
+    del local
+
+    held = _fresh_peak()
+    model, _ = et.build_efficientdet(0, num_classes=90, seed=0, device=dev)
+    predict = make_spatial_predict_fn(model, mesh)
+    images = spatial_batch["images"].to(dev)
+    predict(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dets = predict(images)
+    torch.cuda.synchronize()
+    out["spatial_predict_ms"] = (time.perf_counter() - t0) * 1e3
+    out["spatial_dets"] = [t.cpu() for t in dets]
+    out["spatial_predict_peak_gb"] = _added_peak_gb(held)
+    del model, predict
+
+    whole = {k: v.to(dev) for k, v in spatial_batch.items()}
+    held = _fresh_peak()
+    t0 = time.perf_counter()
+    out["spatial_step"] = train(make_spatial_train_step, whole)
+    out["spatial_step_s"] = time.perf_counter() - t0
+    out["spatial_step_peak_gb"] = _added_peak_gb(held)
+    out["spatial_step_f64"] = train(make_spatial_train_step, whole, torch.float64)
+    out["spatial_grads"], out["spatial_grads_loss"] = _eval_grads(
+        et, {k: v.numpy() for k, v in spatial_batch.items()}, mesh)
+
+    ds = _smoke_dataset(et, n=PAR_CACHE_IMAGES, seed=3)
+    cache = et.DeviceDataCache(ds, target_size=TRAIN_SIZE, max_gt=TRAIN_MAX_GT, mesh=mesh)
+    rows = cache.get_batch(cache_indices)
+    out["cache"] = {"len": len(cache), "nbytes": cache.nbytes(), "rank_nbytes": cache.local_nbytes(),
+                    "rows": {k: v.cpu() for k, v in rows.items()}}
+    out["launches"] = {"head_pointwise": hk.head_pointwise_anchor_major.launches,
+                       "nms_suppress": nk.suppression_keep_mask.launches}
+    return out
+
+
+def phase_parallel(et, kernels, card, pipeline_ms, train_rec):
+    """Data and spatial parallelism. In this process, NCCL at world size 1
+    at D0@512: make_sharded_predict_fn (bf16, BN folded, batch 128) against
+    make_predict_fn, make_sharded_train_step (f32, TF32 off, batch 64)
+    against make_train_step, the spatial predict and step against the
+    serial ones. Then two gloo ranks on the card (parallel/launch.py): the
+    sharded step on a global batch of 16 against the one-process step on it,
+    make_spatial_predict_fn (f32, batch 2) against predict_pipeline, one
+    spatial step (batch 2) against the one-process step and its eval-mode
+    gradients against the serial ones, each rank's peak memory beside one
+    process's (each the peak above what its process held before), and a
+    DeviceDataCache split over the ranks against the unsharded cache. Both
+    two-rank steps run again in float64, the witness that tells float32
+    regrouping from a defect: held against the one-process float64 step,
+    which also anchors the float32 steps' gradients."""
+    import torch
+
+    from efficientdet_tpu_torch.parallel import (make_mesh, make_sharded_predict_fn,
+                                                 make_sharded_train_step, make_spatial_predict_fn,
+                                                 make_spatial_train_step)
+    from efficientdet_tpu_torch.parallel import tolerances as T
+    from efficientdet_tpu_torch.parallel.launch import free_port, spawn
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    checks = []
+
+    def check(name, ok, **rec):
+        checks.append({"check": name, "ok": bool(ok), **rec})
+        emit({"phase": "parallel_check", "check": name, "ok": bool(ok), **rec})
+
+    def timed(fn, steps):
+        fn()  # a warm-up call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / steps * 1e3
+
+    in_process = {name: 0 for name in kernels}
+
+    def counted(fn):
+        """``fn`` whose kernel launches add to the phase's count (the plain
+        functions it is held against count none)."""
+        def call(*args):
+            for k in kernels.values():
+                k.launches = 0
+            out = fn(*args)
+            torch.cuda.synchronize()
+            for name, k in kernels.items():
+                in_process[name] += k.launches
+            return out
+        return call
+
+    rng = np.random.RandomState(0)
+    size = TRAIN_SIZE
+    mesh = make_mesh(init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                     backend="nccl" if DEVICE == "cuda" else "gloo", device=DEVICE, timeout_s=120)
+    try:
+        # sharded predict, world size 1: the same call as make_predict_fn
+        model, _ = et.build_efficientdet(0, num_classes=90, dtype=torch.bfloat16, seed=0,
+                                          device=DEVICE)
+        fused = et.fuse_for_inference(model)
+        big = torch.from_numpy(rng.randint(0, 256, (PAR_PREDICT_BATCH, size, size, 3))
+                               .astype(np.uint8)).to(DEVICE)
+        sharded = counted(make_sharded_predict_fn(fused, mesh))
+        plain = et.make_predict_fn(fused)
+        got, sharded_ms = timed(lambda: sharded(big), 5)
+        want, plain_ms = timed(lambda: plain(big), 5)
+        _check_detections(got, 90, PAR_PREDICT_BATCH)
+        bit = all(torch.equal(a, b) for a, b in zip(got, want))
+        check("sharded_predict_world1_equals_make_predict_fn", bit, bit_for_bit=bit,
+              batch=PAR_PREDICT_BATCH, img_s=PAR_PREDICT_BATCH / sharded_ms * 1e3,
+              ms_per_call=sharded_ms, make_predict_fn_img_s=PAR_PREDICT_BATCH / plain_ms * 1e3,
+              pipeline_phase_img_s=BENCH_BATCH / pipeline_ms * 1e3)
+        del model, fused, big, sharded, plain, got, want
+        torch.cuda.empty_cache()
+
+        # sharded train step, world size 1, against make_train_step
+        host = _bench_train_batch(size, PAR_TRAIN_BATCH, seed=0)
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+        outs, ms = {}, {}
+        for name, make in (("sharded", make_sharded_train_step), ("one_process", None)):
+            model = _drawn_d0(et, DEVICE)
+            tc = et.TrainConfig(batch_size=PAR_TRAIN_BATCH, max_gt_boxes=TRAIN_MAX_GT)
+            step = counted(make(model, tc, mesh)) if make else et.make_train_step(model, tc, DEVICE)
+            holder = {"state": et.create_train_state(model, tc, DEVICE)}
+            gen = torch.Generator(device=DEVICE).manual_seed(1)
+
+            def one():
+                holder["state"], m = step(holder["state"], batch, gen)
+                return m
+
+            # the first step is compared; it is also the timing's warm-up
+            outs[name] = _step_outputs(holder["state"], one())
+            _, ms[name] = timed(one, PAR_TRAIN_STEPS)
+            del model, holder, step
+            torch.cuda.empty_cache()
+        cmp = _compare_steps(outs["sharded"], outs["one_process"])
+        check("sharded_step_world1_equals_make_train_step", _step_ok(cmp),
+              timed_steps=PAR_TRAIN_STEPS, errors_over_tolerance=cmp, ms_per_step=ms["sharded"],
+              one_process_ms_per_step=ms["one_process"],
+              train_phase_ms_per_step=train_rec["f32"]["ms_per_step"])
+        del batch, outs
+        torch.cuda.empty_cache()
+
+        # the spatial functions at world size 1: one band, the halo rows all pads
+        small = {k: v[:PAR_SPATIAL_BATCH] for k, v in host.items()}
+        images = torch.from_numpy(small["images"]).to(DEVICE)
+        model, _ = et.build_efficientdet(0, num_classes=90, seed=0, device=DEVICE)
+        got = counted(make_spatial_predict_fn(model, mesh))(images)
+        want = et.predict_pipeline(model, images)
+        rec = _close_dets(got, want)
+        check("spatial_predict_world1_equals_predict_pipeline", rec.pop("ok"), **rec)
+        step_outs = {}
+        for name, make in (("spatial", make_spatial_train_step), ("one_process", None)):
+            model = _drawn_d0(et, DEVICE)
+            tc = et.TrainConfig(batch_size=PAR_SPATIAL_BATCH, max_gt_boxes=TRAIN_MAX_GT)
+            step = counted(make(model, tc, mesh)) if make else et.make_train_step(model, tc, DEVICE)
+            state = et.create_train_state(model, tc, DEVICE)
+            state, m = step(state, {k: torch.from_numpy(v).to(DEVICE) for k, v in small.items()},
+                            torch.Generator(device=DEVICE).manual_seed(1))
+            step_outs[name] = _step_outputs(state, m)
+        cmp = _compare_steps(step_outs["spatial"], step_outs["one_process"])
+        check("spatial_step_world1_equals_make_train_step", _step_ok(cmp),
+              errors_over_tolerance=cmp)
+        del model, state, step, step_outs
+        torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    if in_process["head_pointwise"] == 0 or in_process["nms_suppress"] == 0:
+        raise AssertionError(f"parallel: the world-size-1 paths missed a kernel: {in_process}")
+
+    # two gloo ranks on the card
+    global_host = _bench_train_batch(size, PAR_GLOBAL_BATCH, seed=2)
+    spatial_host = _bench_train_batch(size, PAR_SPATIAL_BATCH, seed=3)
+    cache_idx = np.random.RandomState(4).randint(0, PAR_CACHE_IMAGES, 8)
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke.py:_parallel_rank", PAR_RANKS, dict(
+        global_batch={k: torch.from_numpy(v) for k, v in global_host.items()},
+        spatial_batch={k: torch.from_numpy(v) for k, v in spatial_host.items()},
+        cache_indices=cache_idx.tolist()), device=DEVICE, backend="gloo", timeout_s=PAR_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    for r in ranks[1:]:
+        for key in ("sharded", "sharded_f64", "spatial_step", "spatial_step_f64"):
+            if not all(torch.equal(r[key][3][k], v) for k, v in ranks[0][key][3].items()):
+                raise AssertionError(f"parallel: the ranks' parameters differ after the {key} step")
+
+    def one_process(batch, dtype=None):
+        held = _fresh_peak()
+        model = _drawn_d0(et, DEVICE, dtype=dtype)
+        tc = et.TrainConfig(batch_size=len(batch["images"]), max_gt_boxes=TRAIN_MAX_GT)
+        state, m = et.make_train_step(model.train(), tc, DEVICE)(
+            et.create_train_state(model, tc, DEVICE),
+            {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()},
+            torch.Generator(device=DEVICE).manual_seed(1))
+        torch.cuda.synchronize()
+        return _step_outputs(state, m), _added_peak_gb(held)
+
+    def two_rank_step(name, key, batch, **rec):
+        """The ranks' float32 step against the one-process float32 step, its
+        gradient against the one-process float64 step's (grad_against_exact),
+        and the ranks' float64 step against the one-process float64 step at
+        FLOAT64_SCALE of the tolerances, where regrouping moves nothing a
+        defect would hide behind."""
+        want, peak = one_process(batch)
+        exact = one_process(batch, torch.float64)[0]
+        got = ranks[0][key]
+        cmp = _compare_steps(got, want)
+        vs_exact, vs_leaf = T.grad_against_exact(got[1], want[1], exact[1])
+        # how far each float32 gradient is from the float64 one in the leaf
+        # where the two differ most, over that leaf's largest |g|
+        leaf = cmp["grad_worst_leaf"]
+        top = float(exact[1][leaf].abs().max())
+        apart = {who: T.grad_errors({leaf: mu[leaf]}, {leaf: exact[1][leaf]})[leaf] / top
+                 for who, mu in (("two_rank", got[1]), ("one_process", want[1]))}
+        check(f"two_rank_{name}_equals_one_process", _step_ok(cmp) and vs_exact <= 1.0,
+              errors_over_tolerance=cmp, grad_against_float64=vs_exact,
+              grad_against_float64_leaf=vs_leaf, worst_leaf_distance_from_float64=apart,
+              rank_peak_gb=[r[f"{key}_peak_gb"] for r in ranks], one_process_peak_gb=peak,
+              rank_step_s=[r[f"{key}_s"] for r in ranks], **rec)
+        cmp64 = _compare_steps(ranks[0][f"{key}_f64"], exact, scale=T.FLOAT64_SCALE)
+        check(f"two_rank_{name}_float64_equals_one_process", T.step_holds(cmp64),
+              errors_over_float64_tolerance=cmp64)
+
+    two_rank_step("sharded_step", "sharded", global_host, global_batch=PAR_GLOBAL_BATCH)
+
+    model, _ = et.build_efficientdet(0, num_classes=90, seed=0, device=DEVICE)
+    held = _fresh_peak()
+    want = et.predict_pipeline(model, torch.from_numpy(spatial_host["images"]).to(DEVICE))
+    predict_peak = _added_peak_gb(held)
+    for r in ranks:
+        rec = _close_dets(r["spatial_dets"], want)
+        check(f"two_rank_spatial_predict_rank{r['rank']}", rec.pop("ok"), **rec,
+              rank_peak_gb=r["spatial_predict_peak_gb"], one_process_peak_gb=predict_peak,
+              ms_per_call=r["spatial_predict_ms"])
+    del model
+    two_rank_step("spatial_step", "spatial_step", spatial_host, images=PAR_SPATIAL_BATCH)
+    want_grads = _eval_grads(et, spatial_host)
+    worst, leaf = 0.0, None
+    for k, w in want_grads.items():
+        err = float(((ranks[0]["spatial_grads"][k] - w).abs() / (1e-6 + 1e-4 * w.abs())).max())
+        if err > worst:
+            worst, leaf = err, k
+    check("two_rank_spatial_gradients", worst <= 1.0, err_over_rtol1e4_atol1e6=worst,
+          worst_leaf=leaf, loss=ranks[0]["spatial_grads_loss"])
+
+    plain = et.DeviceDataCache(_smoke_dataset(et, n=PAR_CACHE_IMAGES, seed=3), target_size=size,
+                               max_gt=TRAIN_MAX_GT, device=DEVICE)
+    rows = plain.get_batch(cache_idx)
+    same = all(torch.equal(r["cache"]["rows"][k], v[lo:hi].cpu())
+               for r, (lo, hi) in zip(ranks, ((0, 4), (4, 8))) for k, v in rows.items())
+    check("two_rank_device_cache_equals_unsharded", same and ranks[0]["cache"]["nbytes"]
+          == 2 * ranks[0]["cache"]["rank_nbytes"], images=PAR_CACHE_IMAGES,
+          pool_mb=ranks[0]["cache"]["nbytes"] / 1e6,
+          rank_pool_mb=[r["cache"]["rank_nbytes"] / 1e6 for r in ranks],
+          unsharded_pool_mb=plain.nbytes() / 1e6)
+    del plain, rows
+    torch.cuda.empty_cache()
+    rank_launches = {k: sum(r["launches"][k] for r in ranks) for k in ("head_pointwise", "nms_suppress")}
+    launches = {k: v + rank_launches.get(k, 0) for k, v in in_process.items()}
+    if min(rank_launches.values()) == 0:
+        raise AssertionError(f"parallel: the ranks' spatial predict missed a kernel: {rank_launches}")
+    rec = {"phase": "parallel", "model": "D0@512, 90 classes, random weights from seed 0",
+           "checks": {c["check"]: c["ok"] for c in checks}, "ranks": PAR_RANKS,
+           "rank_backend": ranks[0]["backend"], "ranks_s": ranks_s,
+           "launches_in_process": in_process, "launches_ranks": rank_launches, "launches": launches,
+           "seconds": time.perf_counter() - t_start, "card": card}
+    emit(rec)
+    if not all(c["ok"] for c in checks):
+        raise AssertionError(f"parallel: checks failed: {[c['check'] for c in checks if not c['ok']]}")
+    return rec
+
+
 def run_phase(name, fn, *args):
     """``{"phase": name}`` on stdout, then ``fn(*args)``; a failure's
     traceback goes to stdout too (with the phase named above it) and the
@@ -2225,10 +2686,12 @@ def main() -> int:
                "nms_suppress": nk.suppression_keep_mask,
                "fused_mbconv_packed": mk.packed_mbconv, "fused_mbconv_rp": mk.packed_mbconv_rp,
                "fused_mbconv_nhwc": mk.fused_mbconv_nhwc, "tap_floor": tk.tap_floor}
-    run_phase("train", phase_train, et, kernels, card, args.profile_dir)
+    train = run_phase("train", phase_train, et, kernels, card, args.profile_dir)
     _, ds = run_phase("data", phase_data, et, card)
     cli = run_phase("train_cli", phase_train_cli, et, kernels, card, ds)
     eval_launches = cli["eval"]["launches"]
+    par = run_phase("parallel", phase_parallel, et, kernels, card, ms_per_call, train)
+    par_launches = par["launches"]
 
     def total(key):
         return sum(t[key] for t in head_t)
@@ -2245,7 +2708,8 @@ def main() -> int:
                 "bound_by": "bytes" if 2 * by_bytes >= tot("bound_ms") else "operations",
                 "library_ms": None, "device_ms": tot("device_ms"),
                 "module_ms": sum(b["module_ms"] for b in mb_blocks),
-                "train_cli_eval_launches": eval_launches[f"fused_mbconv_{layout}"]}
+                "train_cli_eval_launches": eval_launches[f"fused_mbconv_{layout}"],
+                "parallel_launches": par_launches[f"fused_mbconv_{layout}"]}
 
     emit({"kernels": [
         {"name": "head_pointwise", "route": "cuda",
@@ -2255,7 +2719,8 @@ def main() -> int:
          "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
          "bound_by": head_t[0]["bound_by"], "library_ms": total("library_ms"),
          "device_ms": total("device_ms"), "train_cli_eval_launches": eval_launches["head_pointwise"],
-         "export_launches": export_launches["head_pointwise"]},
+         "export_launches": export_launches["head_pointwise"],
+         "parallel_launches": par_launches["head_pointwise"]},
         {"name": "nms_suppress", "route": "cuda",
          "source": "efficientdet_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "efficientdet_tpu/ops/nms_pallas.py:34",
@@ -2263,7 +2728,8 @@ def main() -> int:
          "ms": nms_t["ms"], "plain_ms": nms_t["plain_ms"], "bound_ms": nms_t["bound_ms"],
          "bound_by": nms_t["bound_by"], "library_ms": None, "device_ms": nms_t["device_ms"],
          "train_cli_eval_launches": eval_launches["nms_suppress"],
-         "export_launches": export_launches["nms_suppress"]},
+         "export_launches": export_launches["nms_suppress"],
+         "parallel_launches": par_launches["nms_suppress"]},
         mbconv_row("packed", "experiments/packed_mbconv_pallas.py:201", chain_launches),
         mbconv_row("rp", "experiments/packed_mbconv_pallas.py:360", harness["rp"]),
         mbconv_row("nhwc", "experiments/mbconv_pallas.py:52", harness["nhwc"]),
@@ -2271,7 +2737,8 @@ def main() -> int:
          "replaces": "experiments/vpu_tap_floor.py:85", "launches": floor_launches,
          "max_abs_err": floor_err, "ms": floor["kernel_ms"], "plain_ms": floor_plain,
          "bound_ms": floor["bound_ms"], "bound_by": floor["bound_by"], "library_ms": None,
-         "device_ms": floor["device_ms"], "train_cli_eval_launches": eval_launches["tap_floor"]},
+         "device_ms": floor["device_ms"], "train_cli_eval_launches": eval_launches["tap_floor"],
+         "parallel_launches": par_launches["tap_floor"]},
     ], "note": "head_pointwise, nms_suppress: ms per main-path call at batch 128 (head: the "
                "class and the box launch together), the wrapper's call by CUDA events; "
                "device_ms the kernels alone, by torch.profiler; launches over 3 pipeline calls. "
@@ -2283,7 +2750,9 @@ def main() -> int:
                "its launch alone (torch.profiler). train_cli_eval_launches: each kernel's launches "
                "during the train_cli phase's timed COCO evaluation (64 images, batch 64). "
                "export_launches: the head and NMS kernels' launches in one eager call of the "
-               "export phase's .edz program (D0@512 bf16, batch 32).",
+               "export phase's .edz program (D0@512 bf16, batch 32). parallel_launches: each "
+               "kernel's launches in the parallel phase, its world-size-1 paths in this process "
+               "and its two gloo ranks together.",
         "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

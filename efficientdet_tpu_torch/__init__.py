@@ -3,6 +3,8 @@
 The JAX package beside this one is the reference; this package imports none
 of it and no JAX. Its kernels (``csrc/``) are CUDA C++ for sm_90a, built with
 nvcc at first use; on CPU tensors their plain PyTorch versions run instead.
+``parallel`` trains and predicts over several processes, one a card
+(``torch.distributed``), by batch or by image height.
 """
 
 from .configs import AnchorConfig, BlockConfig, EvalConfig, ModelConfig, TrainConfig
@@ -44,6 +46,13 @@ from .models.detector import (
     predict_pipeline,
 )
 from .ops.preprocess import preprocess_image
+from .parallel import (
+    make_mesh,
+    make_sharded_predict_fn,
+    make_sharded_train_step,
+    make_spatial_predict_fn,
+    make_spatial_train_step,
+)
 from .predict import Predictor
 from .serve import BatchingPredictor, PredictorOverloaded
 from .train_lib import TrainState, create_train_state, make_eval_loss_fn, make_train_step
@@ -59,5 +68,6 @@ __all__ = [
     "PredictorOverloaded", "TrainState", "create_train_state", "make_eval_loss_fn",
     "make_train_step", "CheckpointManager", "CocoDataset", "CsvDataset", "DetectionDataset",
     "DeviceDataCache", "PascalVocDataset", "batch_iterator", "CocoEvaluator", "evaluate_coco",
-    "evaluate_voc", "load_exported", "save_exported",
+    "evaluate_voc", "load_exported", "save_exported", "make_mesh", "make_sharded_predict_fn",
+    "make_sharded_train_step", "make_spatial_predict_fn", "make_spatial_train_step",
 ] + [f"efficientdet_d{i}" for i in range(8)]

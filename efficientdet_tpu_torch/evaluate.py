@@ -6,13 +6,17 @@
         --phi 0 [--set test]
     python -m efficientdet_tpu_torch.evaluate csv annots.csv classes.csv --snapshot ...
     ... --device cpu   # the CPU; the default is the GPU, raising without one
+    torchrun --nproc-per-node N -m efficientdet_tpu_torch.evaluate ...  # N cards
 
 Restores a ``train.py`` snapshot directory (``CheckpointManager``, with the
 ``TrainConfig`` of its ``train_config.json``), then prints the 12 COCO
 statistics (numpy COCOeval) for ``coco``, or per-class VOC AP and the mAP
 otherwise. Detections come from ``make_predict_fn`` in batches (normalise,
 forward, decode and per-class NMS on the device), with the parity-exact
-``EvalConfig.exact`` unless ``--fast-eval``.
+``EvalConfig.exact`` unless ``--fast-eval``. Over several processes
+(``torchrun``) the batches go through ``make_sharded_predict_fn``: each
+rank predicts its rows of every batch, every rank collects all the
+detections, and rank 0 prints.
 """
 
 from __future__ import annotations
@@ -101,22 +105,36 @@ def resolve_model_args(saved_cfg, phi, weighted, image_size, num_classes):
     return phi, weighted, image_size
 
 
-def evaluate_snapshot(args, dataset):
+def evaluate_snapshot(args, dataset, mesh=None):
     """Restore ``args.snapshot`` and evaluate it on ``dataset`` (any
     ``DetectionDataset``; ``coco`` needs the dataset's ``coco`` index and
     ``cat_ids``). Prints as the JAX CLI does and returns the COCO statistics
-    or ``{"mAP": ..., "aps": {label: (AP, n)}}``."""
+    or ``{"mAP": ..., "aps": {label: (AP, n)}}``. ``mesh``: the world to
+    predict over (parallel/mesh.py; None: ``make_mesh`` on ``args.device``,
+    closed on return)."""
+    from .parallel import make_mesh
+
+    if mesh is not None:
+        return _evaluate(args, dataset, mesh)
+    mesh = make_mesh(device=args.device)
+    try:
+        return _evaluate(args, dataset, mesh)
+    finally:
+        mesh.close()
+
+
+def _evaluate(args, dataset, mesh):
     import torch
 
     from . import build_efficientdet
     from .configs import EvalConfig, train_config_from_snapshot
     from .evaluation.coco_eval import evaluate_coco, make_batch_predict_fn
     from .evaluation.voc import evaluate_voc, mean_ap
-    from .models.detector import resolve_device
     from .train_lib import create_train_state
     from .utils.checkpoint import CheckpointManager
 
-    device = resolve_device(args.device)
+    device = mesh.device
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
     num_classes = dataset.num_classes()
     saved_cfg = None
     cfg_path = os.path.join(args.snapshot, "train_config.json")
@@ -138,20 +156,20 @@ def evaluate_snapshot(args, dataset):
                 v.copy_(state.ema_params[k])
     model.eval()
     eval_cfg = EvalConfig() if args.fast_eval else EvalConfig.exact(num_classes)
-    predict = make_batch_predict_fn(model, eval_cfg)
-    print(f"EfficientDet-D{args.phi} | {size}px | {num_classes} classes | "
-          f"{len(dataset)} images | {device}", flush=True)
+    predict = make_batch_predict_fn(model, eval_cfg, mesh=mesh)
+    say(f"EfficientDet-D{args.phi} | {size}px | {num_classes} classes | "
+        f"{len(dataset)} images | {device} | {mesh.world_size} rank(s)", flush=True)
     if args.dataset_type == "coco":
         stats = evaluate_coco(dataset, predict, size, batch_size=args.batch_size,
                               score_threshold=args.score_threshold, max_images=args.max_images,
-                              save_detections=args.save_detections)
-        print(json.dumps({k: round(v, 4) for k, v in stats.items()}))
+                              save_detections=args.save_detections if mesh.rank == 0 else None)
+        say(json.dumps({k: round(v, 4) for k, v in stats.items()}))
         return stats
     aps = evaluate_voc(dataset, predict, size, batch_size=args.batch_size,
                        iou_threshold=args.iou_threshold, max_images=args.max_images)
     for label, (ap, n) in sorted(aps.items()):
-        print(f"{dataset.label_to_name(label)}: AP={ap:.4f} ({n} gt)")
-    print(json.dumps({"mAP": round(mean_ap(aps), 4)}))
+        say(f"{dataset.label_to_name(label)}: AP={ap:.4f} ({n} gt)")
+    say(json.dumps({"mAP": round(mean_ap(aps), 4)}))
     return {"mAP": mean_ap(aps), "aps": aps}
 
 

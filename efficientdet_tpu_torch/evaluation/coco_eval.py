@@ -290,18 +290,20 @@ def _numpy(x) -> np.ndarray:
     return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
 
 
-def make_batch_predict_fn(model, eval_config=None):
+def make_batch_predict_fn(model, eval_config=None, mesh=None):
     """``predict_fn(images)`` for the evaluators over ``model`` (its device,
     its current weights and mode): the numpy canvases go to the model's
     device and through ``make_predict_fn``'s ``"anchor_major"`` front end
-    (normalise, forward, decode, NMS: the head and NMS kernels on the GPU)."""
+    (normalise, forward, decode, NMS: the head and NMS kernels on the GPU).
+    Through ``make_sharded_predict_fn`` over ``mesh`` (parallel/mesh.py;
+    None: this process alone): each rank predicts its rows of the batch and
+    every rank gets all the detections."""
     import torch
 
-    from ..configs import EvalConfig
-    from ..models.detector import make_predict_fn
+    from ..parallel import Mesh, make_sharded_predict_fn
 
-    predict = make_predict_fn(model, eval_config or EvalConfig(), front_end="anchor_major")
     device = next(model.parameters()).device
+    predict = make_sharded_predict_fn(model, mesh or Mesh(0, 1, device), eval_config)
 
     def predict_fn(images):
         return predict(torch.as_tensor(images).to(device, non_blocking=True))

@@ -4,6 +4,9 @@ Counterpart of the JAX package's ``losses.py``: focal loss (alpha 0.25,
 gamma 2) on sigmoid logits and smooth-L1 (sigma 3) over the positive anchors,
 both divided by the BATCH-GLOBAL positive count ``max(sum positives, 1)``.
 The anchor state is its own tensor in {-1 ignore, 0 negative, 1 positive}.
+A data-parallel or spatial step passes ``normalizer``: the whole batch's
+count, all-reduced, where this process holds a part of the batch or of its
+anchors.
 
 The focal term over compact integer labels is :class:`_FocalSum`, a
 ``torch.autograd.Function`` whose backward is the hand-written derivative
@@ -15,10 +18,15 @@ gradients agree.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+def _math(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the losses' arithmetic dtype: float32, or float64 for float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _onehot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -33,14 +41,15 @@ def _focal_elementwise(
     alpha: float,
     gamma: float,
 ) -> torch.Tensor:
-    """Per-element focal loss (B, ..., C) in float32; targets may be compact
-    labels (B, ...) or float one-hot (B, ..., C)."""
-    x = cls_logits.float()
+    """Per-element focal loss (B, ..., C) in float32 (float64 for float64
+    logits); targets may be compact labels (B, ...) or float one-hot
+    (B, ..., C)."""
+    x = _math(cls_logits)
     p = torch.sigmoid(x)
     if cls_targets.dim() == x.dim() - 1:
-        t = _onehot(cls_targets, x.shape[-1]).float()
+        t = _onehot(cls_targets, x.shape[-1]).to(x.dtype)
     else:
-        t = cls_targets.float()
+        t = cls_targets.to(x.dtype)
     pos = t == 1.0
     alpha_factor = torch.where(pos, alpha, 1.0 - alpha)
     focal_weight = torch.where(pos, 1.0 - p, p) ** gamma
@@ -71,7 +80,7 @@ def _focal_grad_elementwise(x: torch.Tensor, onehot: torch.Tensor, alpha: float,
 class _FocalSum(torch.autograd.Function):
     """sum over (..., C) of focal(cl, onehot(labels)) * include -> (B,).
 
-    cl: (B, ..., C) logits in any float dtype (math in float32); labels:
+    cl: (B, ..., C) logits in any float dtype (math in float32, or float64); labels:
     (B, ...) integers (-1 = none); include: (B, ...) float32 in {0, 1}
     (anchor_state != -1). Rank-generic: (B, A, C) concatenated logits and
     (B, H, W, A, C) views of a level's conv output alike. The backward
@@ -90,7 +99,7 @@ class _FocalSum(torch.autograd.Function):
         cl, labels, include = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
             return None, None, None, None, None
-        d = _focal_grad_elementwise(cl.float(), _onehot(labels, cl.shape[-1]),
+        d = _focal_grad_elementwise(_math(cl), _onehot(labels, cl.shape[-1]),
                                     ctx.alpha, ctx.gamma)
         gx = g.reshape(g.shape + (1,) * (include.dim() - 1))
         d = d * (include * gx).unsqueeze(-1)
@@ -112,15 +121,17 @@ def focal_loss(
     anchor_state: torch.Tensor,
     alpha: float = 0.25,
     gamma: float = 2.0,
+    normalizer: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sigmoid focal loss over the non-ignored anchors, divided by the batch's
-    positive count.
+    positive count (``normalizer`` when given).
 
     cls_logits (B, A, C); cls_targets (B, A, C) float one-hot, or (B, A)
     integer labels (-1 = no class), the compact form of
     ``anchors.anchor_targets_compact``; anchor_state (B, A). Scalar.
     """
-    normalizer = _normalizer(anchor_state)
+    if normalizer is None:
+        normalizer = _normalizer(anchor_state)
     include = (anchor_state != -1.0).float()
     if cls_targets.dim() == cls_logits.dim() - 1:
         return _focal_sum(cls_logits, cls_targets, include, alpha, gamma).sum() / normalizer
@@ -131,7 +142,7 @@ def focal_loss(
 def _huber_elementwise(box_preds: torch.Tensor, box_targets: torch.Tensor,
                        sigma: float) -> torch.Tensor:
     sigma_sq = sigma ** 2
-    diff = (box_preds.float() - box_targets.float()).abs()
+    diff = (_math(box_preds) - box_targets.float()).abs()
     return torch.where(diff < 1.0 / sigma_sq, 0.5 * sigma_sq * diff ** 2, diff - 0.5 / sigma_sq)
 
 
@@ -140,12 +151,16 @@ def smooth_l1_loss(
     box_targets: torch.Tensor,
     anchor_state: torch.Tensor,
     sigma: float = 3.0,
+    normalizer: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Smooth-L1 over the positive anchors, divided by the batch's positive
-    count. box_preds, box_targets (B, A, 4); anchor_state (B, A). Scalar."""
+    count (``normalizer`` when given). box_preds, box_targets (B, A, 4);
+    anchor_state (B, A). Scalar."""
     loss = _huber_elementwise(box_preds, box_targets, sigma)
     positive = (anchor_state == 1.0).float()
-    return (loss * positive.unsqueeze(-1)).sum() / _normalizer(anchor_state)
+    if normalizer is None:
+        normalizer = _normalizer(anchor_state)
+    return (loss * positive.unsqueeze(-1)).sum() / normalizer
 
 
 def detection_loss_from_levels(
@@ -158,6 +173,7 @@ def detection_loss_from_levels(
     alpha: float = 0.25,
     gamma: float = 2.0,
     sigma: float = 3.0,
+    normalizer: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`detection_loss` on the heads' per-level outputs.
 
@@ -169,7 +185,8 @@ def detection_loss_from_levels(
     concatenating the levels, without the concatenated tensors.
     """
     bsz = anchor_state.shape[0]
-    normalizer = _normalizer(anchor_state)
+    if normalizer is None:
+        normalizer = _normalizer(anchor_state)
     cls_total = torch.zeros((bsz,), dtype=torch.float32, device=anchor_state.device)
     box_total = torch.zeros_like(cls_total)
     off = 0
@@ -201,9 +218,10 @@ def detection_loss(
     alpha: float = 0.25,
     gamma: float = 2.0,
     sigma: float = 3.0,
+    normalizer: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Focal + smooth-L1 with unit weights on the concatenated (B, A, .)
     tensors: (total, {"cls_loss", "box_loss"})."""
-    cls_loss = focal_loss(cls_logits, cls_targets, anchor_state, alpha, gamma)
-    box_loss = smooth_l1_loss(box_preds, box_targets, anchor_state, sigma)
+    cls_loss = focal_loss(cls_logits, cls_targets, anchor_state, alpha, gamma, normalizer)
+    box_loss = smooth_l1_loss(box_preds, box_targets, anchor_state, sigma, normalizer)
     return cls_loss + box_loss, {"cls_loss": cls_loss, "box_loss": box_loss}

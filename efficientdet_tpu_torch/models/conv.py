@@ -7,6 +7,8 @@ is a no-op.
 With stride 1 and an odd kernel SAME is symmetric and goes to the
 convolution itself. With stride 2 it is asymmetric for even sizes (k=3 pads
 (0, 1), k=5 pads (1, 2)), so the input is padded explicitly first.
+Under a spatial ``parallel_context`` a height band reads its halo rows from
+the neighbouring ranks first (parallel/context.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resample import same_pads
+from ..parallel.context import active_context
+
+
+def same_conv(x: torch.Tensor, w: torch.Tensor, b, k: int, s: int, groups: int) -> torch.Tensor:
+    """flax's SAME convolution of a whole (B, Cin, H, W) map."""
+    if s == 1 and k % 2 == 1:
+        return F.conv2d(x, w, b, 1, k // 2, 1, groups)
+    ph = same_pads(x.shape[-2], k, s)
+    pw = same_pads(x.shape[-1], k, s)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.conv2d(x, w, b, s, 0, 1, groups)
 
 
 class Conv2d(nn.Module):
@@ -36,12 +49,11 @@ class Conv2d(nn.Module):
         k, s = self.kernel_size, self.stride
         w = self.weight.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
-        if s == 1 and k % 2 == 1:
-            return F.conv2d(x, w, b, 1, k // 2, 1, self.groups)
-        ph = same_pads(x.shape[-2], k, s)
-        pw = same_pads(x.shape[-1], k, s)
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, w, b, s, 0, 1, self.groups)
+        ctx = active_context()
+        if ctx is not None and (k > 1 or s > 1) and ctx.banded(x):
+            return ctx.conv2d(x, w, b, k, s, self.groups,
+                              lambda whole: same_conv(whole, w, b, k, s, self.groups))
+        return same_conv(x, w, b, k, s, self.groups)
 
 
 class SeparableConv(nn.Module):

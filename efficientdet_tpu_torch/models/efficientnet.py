@@ -12,6 +12,11 @@ probability ``1 - (1 - survival_prob) * idx / total``. The masks are drawn
 from the caller's ``torch.Generator`` before the block runs, so a block
 recomputed by remat (``remat_max_stage``) sees the same mask.
 
+Under a data-parallel ``parallel_context`` the masks are drawn for the
+global batch and each rank keeps its rows, so N ranks draw what one process
+draws for the concatenated batch; under a spatial one the SE's mean is the
+bands' sums all-reduced (parallel/context.py).
+
 ``fuse_bn=True`` builds the inference-folded variant: every conv carries a
 bias and no BatchNorm exists (utils/fold_bn.py makes its weights).
 """
@@ -31,6 +36,7 @@ from ..configs import (
     round_filters,
     round_repeats,
 )
+from ..parallel.context import active_context
 from .conv import Conv2d
 from .normalization import TpuBatchNorm
 from .remat import remat
@@ -49,7 +55,12 @@ class SqueezeExcite(nn.Module):
         self.expand = Conv2d(num_reduced, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        se = torch.mean(x, dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
+        ctx = active_context()
+        if ctx is not None and ctx.banded(x):
+            se = ctx.spatial_mean(x).to(x.dtype)
+        else:
+            se = torch.mean(x, dim=(2, 3), keepdim=True,
+                            dtype=torch.promote_types(x.dtype, torch.float32)).to(x.dtype)
         se = self.expand(F.silu(self.reduce(se)))
         return x * torch.sigmoid(se)
 
@@ -141,12 +152,14 @@ class EfficientNet(nn.Module):
         """The stochastic-depth keep masks of one forward, by block name:
         float32 (B, 1, 1, 1) in {0, 1}, drawn in block order for the
         residual blocks whose survival is below 1; empty in eval mode."""
+        ctx = active_context()
+        offset, total = (ctx and ctx.draw_rows(batch)) or (0, batch)
         masks = {}
         for name in self.block_names:
             block = getattr(self, name)
             if self.training and block.residual and block.survival_prob < 1.0:
-                masks[name] = torch.empty((batch, 1, 1, 1), device=device).bernoulli_(
-                    block.survival_prob, generator=generator)
+                masks[name] = torch.empty((total, 1, 1, 1), device=device).bernoulli_(
+                    block.survival_prob, generator=generator)[offset:offset + batch]
         return masks
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None

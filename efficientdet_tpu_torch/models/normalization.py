@@ -2,10 +2,11 @@
 
 ``a = rsqrt(var + eps) * scale`` and ``b = bias - mean * a`` are computed in
 float32 on (C,) vectors, then ``y = x * a + b`` in float32 and cast back to
-the input dtype. Parameter names follow torch (``weight``, ``bias``,
-``running_mean``, ``running_var``); utils/convert.py maps flax's ``scale``,
-``bias``, ``mean`` and ``var`` onto them. fuse_for_inference folds every BN
-of an inference model into its conv.
+the input dtype (float64 throughout for a float64 input). Parameter names
+follow torch (``weight``, ``bias``, ``running_mean``, ``running_var``);
+utils/convert.py maps flax's ``scale``, ``bias``, ``mean`` and ``var`` onto
+them. fuse_for_inference folds every BN of an inference model into its
+conv.
 
 In training mode (``module.train()``) mean and variance are the batch's, in
 float32: the biased variance ``max(E[x^2] - E[x]^2, 0)``, with gradients
@@ -15,12 +16,19 @@ with m = ``momentum`` (0.99), on detached statistics. torch's
 momentum, hence this module. ``update_stats = False`` (models/remat.py sets
 it while the backward pass recomputes a block) computes the same output and
 leaves the running statistics alone.
+
+Under a data-parallel or spatial ``parallel_context`` (parallel/context.py)
+the training statistics are the whole batch's: the per-channel sums of x
+and x^2 and the count go through an autograd all-reduce over the ranks
+before the mean and variance are formed, and the running update uses them.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..parallel.context import active_context
 
 
 class TpuBatchNorm(nn.Module):
@@ -38,11 +46,15 @@ class TpuBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             dims = (0,) + tuple(range(2, x.dim()))
-            mean = xf.mean(dim=dims)
-            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            ctx = active_context()
+            if ctx is not None and ctx.syncs_bn(x):
+                mean, var = ctx.batch_moments(xf, dims)
+            else:
+                mean = xf.mean(dim=dims)
+                var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
             if self.update_stats:
                 m = self.momentum
                 with torch.no_grad():

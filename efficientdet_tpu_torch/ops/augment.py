@@ -16,6 +16,9 @@ is deterministic: matrices and colour factors in, images and boxes out.
 brightness, hue, saturation). JAX splits its key instead, so the two
 packages draw different numbers; the tests hold the apply against JAX on
 identical matrices and factors, and the sampler by its ranges.
+``draw_rows=(offset, total)`` draws every factor for a ``total``-image batch
+and keeps the rows from ``offset``: a data-parallel rank's share of the
+global batch's draws.
 
 Semantics, as in the JAX package:
 
@@ -53,8 +56,9 @@ class ColorConfig:
     saturation_range: Tuple[float, float] = (0.95, 1.05)
 
 
-def _uniform(generator, n: int, lo: float, hi: float, device) -> torch.Tensor:
-    return torch.rand(n, generator=generator, device=device) * (hi - lo) + lo
+def _uniform(generator, n: int, lo: float, hi: float, device, draw_rows=None) -> torch.Tensor:
+    offset, total = draw_rows or (0, n)
+    return (torch.rand(total, generator=generator, device=device) * (hi - lo) + lo)[offset:offset + n]
 
 
 def _extents(extents: Optional[torch.Tensor], batch: int, size: int, device) -> torch.Tensor:
@@ -76,6 +80,7 @@ def sample_transform_matrices(
     config: TransformConfig = TransformConfig(),
     extents: Optional[torch.Tensor] = None,
     device=None,
+    draw_rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """(B, 3, 3) random affines about each visible image's centre:
     rotation @ translation @ shear @ scaling @ flip, conjugated by the
@@ -87,7 +92,7 @@ def sample_transform_matrices(
     ext_h, ext_w = ext[:, 0], ext[:, 1]
 
     def u(lo, hi):
-        return _uniform(generator, batch_size, lo, hi, device)
+        return _uniform(generator, batch_size, lo, hi, device, draw_rows)
 
     ang = u(c.min_rotation, c.max_rotation)
     tx = u(c.min_translation[0], c.max_translation[0]) * ext_w
@@ -116,9 +121,10 @@ def sample_color_factors(
     batch_size: int,
     config: ColorConfig = ColorConfig(),
     device=None,
+    draw_rows: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, torch.Tensor]:
     """(B,) contrast, brightness, hue and saturation, drawn in that order."""
-    return {name: _uniform(generator, batch_size, *rng, device)
+    return {name: _uniform(generator, batch_size, *rng, device, draw_rows)
             for name, rng in (("contrast", config.contrast_range),
                               ("brightness", config.brightness_range),
                               ("hue", config.hue_range),
@@ -279,6 +285,7 @@ def augment_batch_device(
     color_config: ColorConfig = ColorConfig(),
     geometric: bool = True,
     color: bool = True,
+    draw_rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Augment a letterboxed batch on its device.
 
@@ -290,7 +297,9 @@ def augment_batch_device(
     """
     b, size = images.shape[0], images.shape[1]
     matrices = (sample_transform_matrices(generator, b, size, transform_config, extents,
-                                          device=images.device)
+                                          device=images.device, draw_rows=draw_rows)
                 if geometric else None)
-    factors = sample_color_factors(generator, b, color_config, device=images.device) if color else None
+    factors = (sample_color_factors(generator, b, color_config, device=images.device,
+                                    draw_rows=draw_rows)
+               if color else None)
     return apply_augment(images, gt_boxes, gt_labels, extents, matrices, factors)

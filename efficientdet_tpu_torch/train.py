@@ -4,6 +4,7 @@
     python -m efficientdet_tpu_torch.train pascal /data/VOC2012 ...
     python -m efficientdet_tpu_torch.train csv annots.csv classes.csv ...
     ... --device cpu   # the CPU; the default is the GPU, raising without one
+    torchrun --nproc-per-node N -m efficientdet_tpu_torch.train ...  # N cards
 
 Read a dataset, batch and letterbox it on the host (optionally augmenting
 there, ``--random-transform``, or on the device inside the step,
@@ -16,6 +17,16 @@ weights when there are any, cut the learning rate on a plateau, and write a
 
 ``main(argv)`` is ``build_dataset`` and ``train_from_datasets``, which takes
 dataset objects, so any ``DetectionDataset`` can drive the same loop.
+
+Over several processes (``torchrun``, or any launcher that sets ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``) the loop
+is data parallel (parallel/): ``--batch-size`` stays the global batch and
+must divide by the world size; each rank reads its share of every epoch
+(``batch_iterator(shard_index=rank, shard_count=world)``, or its rows of the
+device cache's batches), steps with ``make_sharded_train_step`` and
+evaluates with ``make_sharded_predict_fn``; rank 0 alone prints, logs and
+writes snapshots, and broadcasts the epoch's mAP so that every rank takes
+the same plateau decision. The flags do not change.
 """
 
 from __future__ import annotations
@@ -169,25 +180,46 @@ def _snapshot_fused(snapshot: str) -> bool:
         return json.load(f).get("train", {}).get("fused_optimizer", False)
 
 
-def train_from_datasets(args, train_ds, val_ds, on_step: Optional[Callable] = None):
+def train_from_datasets(args, train_ds, val_ds, on_step: Optional[Callable] = None, mesh=None):
     """The training loop of ``main`` on dataset objects.
 
     ``args``: ``parse_args``'s namespace (``dataset_type`` picks the epoch
     evaluation: COCO AP for "coco", which needs the dataset's ``coco`` index
     and ``cat_ids``; VOC mAP otherwise). ``on_step(epoch, step_in_epoch,
-    state, metrics)``, if given, runs after every step. Returns the model,
-    the final state and the epoch records (``loss``, ``mAP``, ``lr_scale``
-    ...).
+    state, metrics)``, if given, runs after every step. ``mesh``: the world
+    to train over (parallel/mesh.py; None: ``make_mesh`` on ``args.device``,
+    one process unless the launcher's environment says otherwise, closed on
+    return). Returns the model, the final state and the epoch records
+    (``loss``, ``mAP``, ``lr_scale`` ...), equal on every rank.
     """
+    from .parallel import make_mesh
+
+    if mesh is not None:
+        return _train(args, train_ds, val_ds, on_step, mesh)
+    mesh = make_mesh(device=args.device)
+    try:
+        return _train(args, train_ds, val_ds, on_step, mesh)
+    finally:
+        mesh.close()
+
+
+def _train(args, train_ds, val_ds, on_step, mesh):
     from . import build_efficientdet
     from .configs import TrainConfig
     from .data.augment import make_augmenter
     from .data.common import batch_iterator, prefetch
-    from .models.detector import resolve_device
-    from .train_lib import create_train_state, make_eval_loss_fn, make_train_step
+    from .parallel import make_sharded_train_step
+    from .parallel.collectives import broadcast_
+    from .train_lib import create_train_state, make_eval_loss_fn
     from .utils.checkpoint import CheckpointManager
 
-    device = resolve_device(args.device)
+    device, world, lead = mesh.device, mesh.world_size, mesh.rank == 0
+    if args.batch_size % world:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} is not divisible by the {world}-way "
+            "data-parallel axis: every rank must get an equal batch slice")
+    local_batch = args.batch_size // world
+    say = print if lead else (lambda *a, **k: None)
     num_classes = train_ds.num_classes()
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     model, cfg = build_efficientdet(
@@ -196,7 +228,8 @@ def train_from_datasets(args, train_ds, val_ds, on_step: Optional[Callable] = No
         remat=args.remat, remat_scope=args.remat_scope, device=device, seed=args.seed,
     )
     size = cfg.image_size
-    print(f"EfficientDet-D{args.phi} | {size}px | {num_classes} classes | {device}", flush=True)
+    say(f"EfficientDet-D{args.phi} | {size}px | {num_classes} classes | {device} | "
+        f"{world} rank(s)", flush=True)
 
     steps_per_epoch = args.steps or max(1, len(train_ds) // args.batch_size)
     tc = TrainConfig(
@@ -210,19 +243,20 @@ def train_from_datasets(args, train_ds, val_ds, on_step: Optional[Callable] = No
         # does not change the port's step)
         saved_fused = _snapshot_fused(args.snapshot)
         if saved_fused != tc.fused_optimizer:
-            print(f"snapshot opt_state is {'fused' if saved_fused else 'leaf-wise'}; matching "
-                  f"fused_optimizer={saved_fused} for resume", flush=True)
+            say(f"snapshot opt_state is {'fused' if saved_fused else 'leaf-wise'}; matching "
+                f"fused_optimizer={saved_fused} for resume", flush=True)
             tc = dataclasses.replace(tc, fused_optimizer=saved_fused)
 
     # the configurations beside the snapshots: evaluate.py and --snapshot
     # rebuild the same TrainState from them
-    os.makedirs(args.snapshot_path, exist_ok=True)
-    with open(os.path.join(args.snapshot_path, "train_config.json"), "w") as f:
-        json.dump({"train": dataclasses.asdict(tc),
-                   "model": {"phi": args.phi, "num_classes": num_classes,
-                             "weighted_bifpn": cfg.weighted_bifpn, "freeze_bn": args.freeze_bn,
-                             "image_size": size}},
-                  f, indent=1)
+    if lead:
+        os.makedirs(args.snapshot_path, exist_ok=True)
+        with open(os.path.join(args.snapshot_path, "train_config.json"), "w") as f:
+            json.dump({"train": dataclasses.asdict(tc),
+                       "model": {"phi": args.phi, "num_classes": num_classes,
+                                 "weighted_bifpn": cfg.weighted_bifpn, "freeze_bn": args.freeze_bn,
+                                 "image_size": size}},
+                      f, indent=1)
 
     if args.snapshot == "imagenet":
         raise SystemExit(
@@ -232,12 +266,14 @@ def train_from_datasets(args, train_ds, val_ds, on_step: Optional[Callable] = No
             "directory instead."
         )
     model.train()
+    # made first: it gives every rank rank 0's weights, which the state's EMA
+    # copies and Adam moments are then made from
+    step_fn = make_sharded_train_step(model, tc, mesh)
     state = create_train_state(model, tc, device)
-    ckpt = CheckpointManager(args.snapshot_path)
+    ckpt = CheckpointManager(args.snapshot_path) if lead else None
     if args.snapshot:
         state = CheckpointManager(args.snapshot).restore(state)
-        print(f"resumed from {args.snapshot} at step {int(state.step)}")
-    step_fn = make_train_step(model, tc, device)
+        say(f"resumed from {args.snapshot} at step {int(state.step)}")
 
     augment = make_augmenter() if args.random_transform and not args.device_augment else None
     if args.device_cache > 0:
@@ -250,24 +286,27 @@ def train_from_datasets(args, train_ds, val_ds, on_step: Optional[Callable] = No
         from .data.device_cache import DeviceDataCache
 
         cache = DeviceDataCache(train_ds, target_size=size, max_gt=args.max_gt,
-                                limit=args.device_cache, device=device)
-        print(json.dumps({"device_cache_images": len(cache),
-                          "device_cache_mb": round(cache.nbytes() / 1e6, 1)}), flush=True)
+                                limit=args.device_cache, mesh=mesh)
+        say(json.dumps({"device_cache_images": len(cache),
+                        "device_cache_mb": round(cache.nbytes() / 1e6, 1),
+                        "device_cache_rank_mb": round(cache.local_nbytes() / 1e6, 1)}), flush=True)
         # drop_last=False: a batch larger than a small dataset wrap-pads
         it = cache.batches(args.batch_size, seed=args.seed, drop_last=False)
     else:
         it = prefetch(batch_iterator(
-            train_ds, args.batch_size, target_size=size, max_gt=args.max_gt, shuffle=True,
-            repeat=True, augment=augment, seed=args.seed, workers=args.workers), size=2)
+            train_ds, local_batch, target_size=size, max_gt=args.max_gt, shuffle=True,
+            repeat=True, augment=augment, seed=args.seed, workers=args.workers,
+            shard_index=mesh.rank, shard_count=world), size=2)
 
     if args.data_echo > 1:
         # each echo is a new view: the step's generator advances
         it = (b for b in it for _ in range(args.data_echo))
 
     log_path = args.log_file or os.path.join(args.snapshot_path, "train_log.jsonl")
-    os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
+    if lead:
+        os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
     if args.tensorboard_dir:
-        print("tensorboard disabled (the port writes no TensorFlow event files; "
+        say("tensorboard disabled (the port writes no TensorFlow event files; "
               f"the metrics are in {log_path})", flush=True)
 
     # the plateau multiplier starts from the restored value on resume
@@ -276,7 +315,7 @@ def train_from_datasets(args, train_ds, val_ds, on_step: Optional[Callable] = No
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)
     history = []
     t_epoch = time.time()
-    with open(log_path, "a") as logf, _restore_threads():
+    with open(log_path if lead else os.devnull, "a") as logf, _restore_threads():
         if args.workers > 0 and args.device_cache == 0 and device.type == "cuda":
             # each worker letterboxes (and augments) with one intra-op thread
             # rather than all of them sharing torch's pool (faster at 8
@@ -298,7 +337,7 @@ def train_from_datasets(args, train_ds, val_ds, on_step: Optional[Callable] = No
                 if s % 50 == 0 or s == steps_per_epoch - 1:
                     m = {k: float(v) for k, v in metrics.items()}
                     m.update(epoch=epoch, step=int(state.step), sec=round(time.time() - t_epoch, 1))
-                    print(json.dumps(m), flush=True)
+                    say(json.dumps(m), flush=True)
                     logf.write(json.dumps(m) + "\n")
                     logf.flush()
                     agg = m
@@ -314,12 +353,16 @@ def train_from_datasets(args, train_ds, val_ds, on_step: Optional[Callable] = No
                 if vals:
                     vl = {k: float(np.mean([v[k] for v in vals])) for k in vals[0]}
                     epoch_metrics.update(vl)
-                    print(json.dumps({"epoch": epoch, **{k: round(v, 4) for k, v in vl.items()}}),
-                          flush=True)
+                    say(json.dumps({"epoch": epoch, **{k: round(v, 4) for k, v in vl.items()}}),
+                        flush=True)
             if val_ds is not None and not args.no_eval and (epoch + 1) % args.eval_every == 0:
-                epoch_map = evaluate_epoch(args, model, state, val_ds, size, logf, epoch)
+                epoch_map = evaluate_epoch(args, model, state, val_ds, size, logf, epoch, mesh)
+                # rank 0's figure decides the plateau on every rank
+                shared = torch.tensor([epoch_map], dtype=torch.float64, device=device)
+                broadcast_([shared], mesh.group)
+                epoch_map = float(shared[0])
                 epoch_metrics["mAP"] = epoch_map
-                print(f"epoch {epoch}: mAP={epoch_map:.4f}", flush=True)
+                say(f"epoch {epoch}: mAP={epoch_map:.4f}", flush=True)
                 if epoch_map > best_map:
                     best_map, bad_epochs = epoch_map, 0
                 else:
@@ -327,28 +370,32 @@ def train_from_datasets(args, train_ds, val_ds, on_step: Optional[Callable] = No
                     if bad_epochs >= args.reduce_lr_patience:
                         lr_scale *= args.reduce_lr_factor
                         bad_epochs = 0
-                        print(f"ReduceLROnPlateau: lr_scale -> {lr_scale}", flush=True)
+                        say(f"ReduceLROnPlateau: lr_scale -> {lr_scale}", flush=True)
                         state = state.replace(lr_scale=lr_scale)
-            ckpt.save(int(state.step), state, epoch_metrics)
+            if lead:
+                ckpt.save(int(state.step), state, epoch_metrics)
             history.append({"epoch": epoch, "step": int(state.step), "lr_scale": lr_scale,
                             **epoch_metrics})
             t_epoch = time.time()
     return model, state, history
 
 
-def evaluate_epoch(args, model, state, val_ds, size, logf=None, epoch=0) -> float:
+def evaluate_epoch(args, model, state, val_ds, size, logf=None, epoch=0, mesh=None) -> float:
     """COCO AP (``dataset_type`` "coco", at most 500 images) or VOC mAP of
     the model's eval weights (``eval_weights``) on ``val_ds``; the COCO
-    statistics are logged."""
+    statistics are logged (by rank 0). With a ``mesh`` of several ranks each
+    predicts its rows of every batch (``make_sharded_predict_fn``) and all
+    get the same figure."""
     from .evaluation.coco_eval import evaluate_coco, make_batch_predict_fn
     from .evaluation.voc import evaluate_voc, mean_ap
 
     with eval_weights(model, state):
-        predict = make_batch_predict_fn(model)
+        predict = make_batch_predict_fn(model, mesh=mesh)
         if args.dataset_type == "coco":
             stats = evaluate_coco(val_ds, predict, size, batch_size=args.batch_size, max_images=500)
-            print(json.dumps({"epoch": epoch, **{k: round(v, 4) for k, v in stats.items()}}),
-                  flush=True)
+            if mesh is None or mesh.rank == 0:
+                print(json.dumps({"epoch": epoch, **{k: round(v, 4) for k, v in stats.items()}}),
+                      flush=True)
             if logf is not None:
                 logf.write(json.dumps({"epoch": epoch, **stats}) + "\n")
             return stats["AP"]

@@ -42,6 +42,7 @@ from .losses import detection_loss, detection_loss_from_levels
 from .models.detector import EfficientDet, resolve_device
 from .ops.augment import augment_batch_device
 from .ops.preprocess import preprocess_batch_fixed
+from .parallel.context import parallel_context
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 Tensors = Dict[str, torch.Tensor]
@@ -220,13 +221,17 @@ def _batch(batch: Dict[str, Any], device: torch.device):
     return images, boxes, labels
 
 
-def _loss(model: EfficientDet, config: TrainConfig, images, boxes, labels, generator):
-    """(total, aux, anchor_state) of a batch of normalised float32 images."""
+def _loss(model: EfficientDet, config: TrainConfig, images, boxes, labels, generator,
+          normalize: Optional[Callable] = None):
+    """(total, aux, anchor_state) of a batch of normalised float32 images.
+    ``normalize(anchor_state)``: the losses' divisor (the batch's positive
+    count when None)."""
     cfg = model.config
     anchors = model.anchors(images.shape[1], images.device)
     cls_t, box_t, state_t = anchor_targets_batch_compact(
         anchors, boxes, labels, config.positive_iou, config.negative_iou)
-    kw = dict(alpha=config.focal_alpha, gamma=config.focal_gamma, sigma=config.huber_sigma)
+    kw = dict(alpha=config.focal_alpha, gamma=config.focal_gamma, sigma=config.huber_sigma,
+              normalizer=None if normalize is None else normalize(state_t))
     if config.per_level_loss:
         cls_levels, box_levels = model(images, raw_levels=True, generator=generator)
         total, aux = detection_loss_from_levels(
@@ -263,7 +268,7 @@ def make_eval_loss_fn(model: EfficientDet, config: TrainConfig, device=None):
     return eval_loss
 
 
-def make_train_step(model: EfficientDet, config: TrainConfig, device=None):
+def make_train_step(model: EfficientDet, config: TrainConfig, device=None, parallel=None):
     """``train_step(state, batch, generator=None) -> (state, metrics)``.
 
     batch: ``images`` (B, S, S, 3), uint8 (normalised inside the step) or
@@ -279,6 +284,12 @@ def make_train_step(model: EfficientDet, config: TrainConfig, device=None):
     ``freeze_backbone``, before the clip) and ``num_positives`` (mean per
     image), as device tensors. EMA moves on every call. The anchors follow
     the batch's image size.
+
+    ``parallel``: what a data-parallel or spatial step changes
+    (parallel/sharding.py makes it): the context the forward and backward
+    run in, the loss (the global normaliser, a band's anchors), the SUM of
+    the gradients over the ranks (between ``torch.autograd.grad`` and
+    ``global_norm``) and of the loss metrics. None: this process's step.
     """
     dev = _model_device(model, device)
     own = dict(model.named_parameters())
@@ -293,19 +304,29 @@ def make_train_step(model: EfficientDet, config: TrainConfig, device=None):
         if not model.training:
             model.train()
         images, boxes, labels = _batch(batch, dev)
-        if config.device_augment:
-            extents = batch.get("extents")
-            images, boxes, labels = augment_batch_device(
-                generator, images, boxes, labels,
-                extents=None if extents is None else torch.as_tensor(extents, device=dev),
-                color=config.device_augment_color)
-        # the augmenter returns float32 in [0, 255]: normalised here too
-        if images.dtype != torch.float32 or config.device_augment:
-            images = preprocess_batch_fixed(images, dtype=torch.float32)
-        total, aux, anchor_state = _loss(model, config, images, boxes, labels, generator)
-        aux["num_positives"] = (anchor_state == 1.0).sum(dim=1).float().mean()
         params = [state.params[k] for k in names]
-        grads = dict(zip(names, torch.autograd.grad(total, params)))
+        ctx = None if parallel is None else parallel.context_for(images)
+        with parallel_context(ctx):
+            if config.device_augment:
+                extents = batch.get("extents")
+                images, boxes, labels = augment_batch_device(
+                    generator, images, boxes, labels,
+                    extents=None if extents is None else torch.as_tensor(extents, device=dev),
+                    color=config.device_augment_color,
+                    draw_rows=None if ctx is None else ctx.draw_rows(images.shape[0]))
+            # the augmenter returns float32 in [0, 255]: normalised here too
+            if images.dtype != torch.float32 or config.device_augment:
+                images = preprocess_batch_fixed(images, dtype=torch.float32)
+            if parallel is None:
+                total, aux, anchor_state = _loss(model, config, images, boxes, labels, generator)
+                aux["num_positives"] = (anchor_state == 1.0).sum(dim=1).float().mean()
+            else:
+                total, aux = parallel.loss(model, config, images, boxes, labels, generator)
+            grad_list = torch.autograd.grad(total, params)
+        if parallel is not None:
+            grad_list = parallel.reduce_grads(grad_list)
+            total, aux = parallel.reduce_metrics(total, aux)
+        grads = dict(zip(names, grad_list))
         for k in frozen:
             grads[k] = torch.zeros_like(grads[k])
         grad_norm = global_norm(list(grads.values()))

@@ -355,3 +355,64 @@ def test_ops_launch_their_kernels_and_export_on_the_gpu(tmp_path):
         assert torch.equal(g_, w)
     assert hk.head_pointwise_anchor_major.launches == before[0] + 3
     assert nk.suppression_keep_mask.launches == before[1] + 3
+
+
+def test_parallel_modules_and_rank_programs_import_without_jax():
+    """parallel/ and the rank programs that the multi-rank tests and
+    chip_smoke.py start (tests/torch_parallel_ranks.py) run in processes
+    that import no JAX: importing them pulls in nothing forbidden."""
+    ranks = os.path.join(ROOT, "tests", "torch_parallel_ranks.py")
+    code = (
+        "import importlib.util, sys\n"
+        "import efficientdet_tpu_torch.parallel, efficientdet_tpu_torch.parallel.launch\n"
+        f"spec = importlib.util.spec_from_file_location('ranks', {ranks!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + HOST_ONLY!r})\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    bad = [m for m in _imports(ranks) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{ranks} imports {bad}"
+
+
+def test_parallel_entry_points_raise_without_gpu(monkeypatch):
+    from efficientdet_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert make_mesh(device="cpu").world_size == 1
+
+
+@pytest.mark.cuda
+def test_sharded_predict_at_world_size_one_on_the_gpu():
+    """On a GPU: NCCL at world size 1; make_sharded_predict_fn launches the
+    head and NMS kernels and equals make_predict_fn bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs the parallel phase at full size")
+    import numpy as np
+
+    from efficientdet_tpu_torch.ops import head_kernel as hk
+    from efficientdet_tpu_torch.ops import nms_kernel as nk
+    from efficientdet_tpu_torch.parallel import make_mesh, make_sharded_predict_fn
+    from efficientdet_tpu_torch.parallel.launch import free_port
+
+    mesh = make_mesh(init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                     timeout_s=60)
+    try:
+        assert mesh.backend == "nccl"
+        model, _ = efficientdet_tpu_torch.build_efficientdet(0, num_classes=6, image_size=128)
+        images = torch.from_numpy(
+            np.random.RandomState(0).randint(0, 256, (3, 128, 128, 3)).astype(np.uint8)).cuda()
+        before = (hk.head_pointwise_anchor_major.launches, nk.suppression_keep_mask.launches)
+        got = make_sharded_predict_fn(model, mesh)(images)
+        torch.cuda.synchronize()
+        assert (hk.head_pointwise_anchor_major.launches, nk.suppression_keep_mask.launches) == (
+            before[0] + 2, before[1] + 1)
+        want = efficientdet_tpu_torch.make_predict_fn(model)(images)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    finally:
+        mesh.close()
