@@ -139,7 +139,32 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    1e-6), each rank's peak memory beside one process's, a DeviceDataCache of
    37 images split over the ranks against the unsharded cache; one record a
    check, the phase's seconds and the head and NMS launches;
-16. the kernels line, the card line, and the last line,
+16. family: D1-D7 (the JAX package's bench_phi for every phi), each at its
+   own resolution, 90 classes, weights drawn with numpy from the seed phi
+   at conv variance 1 / fan-in (experiments/drawn_weights.py, FAMILY_GAIN:
+   well conditioned at every phi), BN folded, bf16, "anchor_major", at
+   FAMILY_BATCH: one call with the launch counters
+   at 0 (2 head and 1 NMS launch) and the kernels' inputs recorded, img/s
+   over 5 calls after 2 warm-up ones, peak memory, the head kernel's plan
+   and both kernels against their plain versions on that call's inputs
+   (head: one bf16 ulp; NMS: exact), the class launch's ms, device ms,
+   bound and torch.addmm + amax there, FLOPs an image and an MFU (both
+   counting convolutions and matrix products only), and the card against
+   the CPU in float32 (TF32 off) at batch 1 on the same weights (the
+   gpu_vs_cpu rule); D0's MFU from the pipeline phase's call; then D4@1024
+   training at batch 16, float32, remat (tools/bench_train.py --phi 4
+   --remat): 2 warm-up and 4 timed steps, ms/step, img/s, peak memory,
+   every loss and gradient norm finite, the last timed loss below the
+   first;
+17. int8: experiments/int8_microbench.py (the JAX script's keys: int8
+   against bf16 for a 4096^3 product, a 3x3 and a depthwise 3x3 conv at
+   (8, 224, 128, 128), two-point slopes over CUDA graphs of chained
+   iterations, *_int8_error where an int8 op does not run) beside the
+   card's bf16 and int8 dense peaks;
+18. stage1_packing: experiments/stage1_packing.py (the stage-1 block's four
+   formulations at batch 16, 512 px, 48 -> 24, bf16, forward and weight
+   gradients; each against ref at rtol/atol 3e-2, then its ms);
+19. the kernels line, the card line, and the last line,
    {"ok": true, "device": {...}}.
 
 Before each phase a line {"phase": "<name>"}; a phase's failure prints
@@ -163,6 +188,7 @@ import traceback
 
 import numpy as np
 
+from efficientdet_tpu_torch.experiments.drawn_weights import drawn_model, drawn_state_dict
 from efficientdet_tpu_torch.experiments.timing import (
     HBM_BYTES_S,
     PEAK_BF16,
@@ -675,6 +701,52 @@ def _card_vs_cpu(dets, n_images):
     return rec
 
 
+def _heads_card_vs_cpu(tn, models, images):
+    """The gpu_vs_cpu rule on ``models`` ({"cuda": ..., "cpu": ...}, the same
+    folded float32 weights; TF32 off) and uint8 ``images``: raw head outputs
+    within 1e-4 of their scale (float32 convs in other algorithms and
+    summation orders, through some 90 layers and more); the CPU's head
+    outputs through the NMS on both devices, exactly. Raises on a
+    disagreement; returns (heads, nms, the CPU forward's seconds)."""
+    import torch
+
+    from efficientdet_tpu_torch.ops.preprocess import preprocess_batch_fixed
+
+    outs, cpu_s = {}, 0.0
+    with torch.inference_mode():
+        for key, dev in (("cuda", DEVICE), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            (z, amax, hws), (zb, _) = models[key](preprocess_batch_fixed(images.to(dev)),
+                                                  anchor_major=True)
+            outs[key] = (z.cpu(), amax.cpu(), zb.cpu(), hws)
+            cpu_s = time.perf_counter() - t0
+    heads = {}
+    for i, name in enumerate(("z", "amax", "zb")):
+        g, c = outs["cuda"][i], outs["cpu"][i]
+        scale = c.abs().max().item()
+        err = (g - c).abs().max().item()
+        heads[name] = {"max_abs_err": err, "scale": scale, "err_over_tol": err / (1e-4 * scale)}
+    if not all(h["err_over_tol"] <= 1.0 for h in heads.values()):
+        raise AssertionError(f"card and CPU head outputs differ: {heads}")
+
+    z, amax, zb, hws = outs["cpu"]
+    size = images.shape[1]
+    anchors = models["cpu"].anchors(size, torch.device("cpu"))
+    cpu = tn.batched_filter_from_anchor_major_levels(anchors, (zb, hws), (z, amax, hws), (size, size))
+    gpu = [t.cpu() for t in tn.batched_filter_from_anchor_major_levels(
+        anchors.to(DEVICE), (zb.to(DEVICE), hws), (z.to(DEVICE), amax.to(DEVICE), hws),
+        (size, size))]
+    nms = {"boxes_equal": bool(torch.equal(gpu[0], cpu[0])),
+           "classes_equal": bool(torch.equal(gpu[2], cpu[2])),
+           "num_valid_equal": bool(torch.equal(gpu[3], cpu[3])),
+           "num_valid": [int(v) for v in cpu[3]],
+           "max_abs_dscore": (gpu[1] - cpu[1]).abs().max().item()}
+    if not (nms["boxes_equal"] and nms["classes_equal"] and nms["num_valid_equal"]
+            and nms["max_abs_dscore"] <= 1e-6):
+        raise AssertionError(f"NMS on the card differs from the CPU's: {nms}")
+    return heads, nms, cpu_s
+
+
 def phase_gpu_vs_cpu(et, tn):
     import torch
 
@@ -687,44 +759,7 @@ def phase_gpu_vs_cpu(et, tn):
         models[dev] = et.fuse_for_inference(model)
     rng = np.random.RandomState(3)
     images = torch.from_numpy(rng.randint(0, 256, (2, 512, 512, 3)).astype(np.uint8))
-    from efficientdet_tpu_torch.ops.preprocess import preprocess_batch_fixed
-
-    outs = {}
-    with torch.inference_mode():
-        for dev, model in models.items():
-            x = preprocess_batch_fixed(images.to(dev))
-            (z, amax, hws), (zb, _) = model(x, anchor_major=True)
-            outs[dev] = (z.cpu(), amax.cpu(), zb.cpu(), hws)
-    heads = {}
-    for i, name in enumerate(("z", "amax", "zb")):
-        g, c = outs["cuda"][i], outs["cpu"][i]
-        scale = c.abs().max().item()
-        err = (g - c).abs().max().item()
-        # float32 convs in other algorithms and summation orders, through
-        # some 90 layers: 1e-4 of the output's scale
-        heads[name] = {"max_abs_err": err, "scale": scale, "ok": err <= 1e-4 * scale}
-    if not all(h["ok"] for h in heads.values()):
-        raise AssertionError(f"card and CPU head outputs differ: {heads}")
-
-    # the same head outputs through the NMS on both devices: exact
-    from efficientdet_tpu_torch.anchors import anchors_for_shape
-
-    z, amax, zb, hws = outs["cpu"]
-    anchors = torch.from_numpy(anchors_for_shape((512, 512)))
-    cpu = tn.batched_filter_from_anchor_major_levels(anchors, (zb, hws), (z, amax, hws), (512, 512))
-    gpu = tn.batched_filter_from_anchor_major_levels(
-        anchors.cuda(), (zb.cuda(), hws), (z.cuda(), amax.cuda(), hws), (512, 512)
-    )
-    gpu = [t.cpu() for t in gpu]
-    same_heads = {
-        "boxes_equal": bool(torch.equal(gpu[0], cpu[0])),
-        "classes_equal": bool(torch.equal(gpu[2], cpu[2])),
-        "num_valid_equal": bool(torch.equal(gpu[3], cpu[3])),
-        "max_abs_dscore": (gpu[1] - cpu[1]).abs().max().item(),
-    }
-    if not (same_heads["boxes_equal"] and same_heads["classes_equal"]
-            and same_heads["num_valid_equal"] and same_heads["max_abs_dscore"] <= 1e-6):
-        raise AssertionError(f"NMS on the card differs from the CPU's: {same_heads}")
+    heads, same_heads, _ = _heads_card_vs_cpu(tn, models, images)
 
     # end to end: each card detection has a CPU detection of the same class
     dets = {dev: [t.cpu() for t in et.make_predict_fn(m)(images.to(dev))]
@@ -1552,15 +1587,19 @@ def _launch_counts(kernels):
     return {name: fn.launches for name, fn in kernels.items()}
 
 
-def _train_timed(et, dtype, batch, kernels, card, remat=False):
-    """D0@512 at TRAIN_BATCH: TRAIN_WARMUP + TRAIN_STEPS steps on one batch,
-    the timed ones fenced by torch.cuda.synchronize(); the launch counters
-    set to 0 before and read after (the training path runs no kernel of the
-    port). Returns the record and the trained model and state."""
+def _train_timed(et, dtype, batch, kernels, card, remat=False, phi=0,
+                 warmup=TRAIN_WARMUP, steps=TRAIN_STEPS):
+    """D``phi`` at the batch's size (D0@512 at TRAIN_BATCH unless told):
+    ``warmup`` + ``steps`` steps on one batch, the timed ones fenced by
+    torch.cuda.synchronize(); the launch counters set to 0 before and read
+    after (the training path runs no kernel of the port). Returns the record
+    and the trained model and state."""
     import torch
 
-    model, cfg = et.build_efficientdet(0, num_classes=90, dtype=dtype, seed=0, remat=remat)
-    tc = et.TrainConfig(batch_size=TRAIN_BATCH, max_gt_boxes=TRAIN_MAX_GT)
+    n_img, size = batch["images"].shape[:2]
+    model, cfg = et.build_efficientdet(phi, num_classes=90, dtype=dtype, seed=0, remat=remat,
+                                       image_size=size)
+    tc = et.TrainConfig(batch_size=n_img, max_gt_boxes=TRAIN_MAX_GT)
     state = et.create_train_state(model, tc)
     step = et.make_train_step(model, tc)
     gen = torch.Generator(device=next(model.parameters()).device).manual_seed(1)
@@ -1570,13 +1609,13 @@ def _train_timed(et, dtype, batch, kernels, card, remat=False):
         fn.launches = 0
     metrics = []
     t_first = time.perf_counter()
-    for _ in range(TRAIN_WARMUP):
+    for _ in range(warmup):
         state, m = step(state, batch, gen)
         metrics.append(m)
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t_first
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         state, m = step(state, batch, gen)
         metrics.append(m)
     torch.cuda.synchronize()
@@ -1584,45 +1623,22 @@ def _train_timed(et, dtype, batch, kernels, card, remat=False):
     launches = _launch_counts(kernels)
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
-    timed = losses[TRAIN_WARMUP:]
-    rec = {"dtype": str(dtype).replace("torch.", ""), "batch": TRAIN_BATCH, "remat": remat,
+    timed = losses[warmup:]
+    rec = {"model": f"D{phi}@{size}", "dtype": str(dtype).replace("torch.", ""), "batch": n_img,
+           "remat": remat,
            "tf32": torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32,
-           "warmup_steps": TRAIN_WARMUP, "warmup_s": warmup_s, "steps": TRAIN_STEPS,
-           "img_s": TRAIN_STEPS * TRAIN_BATCH / dt, "ms_per_step": dt / TRAIN_STEPS * 1e3,
+           "warmup_steps": warmup, "warmup_s": warmup_s, "steps": steps,
+           "img_s": steps * n_img / dt, "ms_per_step": dt / steps * 1e3,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "loss": losses, "grad_norm": norms,
            "cls_loss_last": float(metrics[-1]["cls_loss"]), "box_loss_last": float(metrics[-1]["box_loss"]),
            "num_positives": float(metrics[-1]["num_positives"]), "kernel_launches": launches,
            "card": card}
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
-        raise AssertionError(f"train {rec['dtype']}: a non-finite loss or gradient norm: {rec}")
+        raise AssertionError(f"train {rec['model']} {rec['dtype']}: a non-finite loss or gradient norm: {rec}")
     if not timed[-1] < timed[0]:
-        raise AssertionError(f"train {rec['dtype']}: the 10th timed loss is not below the 1st: {timed}")
+        raise AssertionError(f"train {rec['model']} {rec['dtype']}: the last timed loss is not below the first: {timed}")
     return rec, model, state, step, gen
-
-
-def _slim_state_dict(model, seed):
-    """Every entry of ``model``'s state dict drawn with numpy from ``seed``
-    (the CPU tests' draw: fan-in normal convs, BN statistics away from the
-    identity, the class head's final bias near the prior)."""
-    import torch
-
-    rng = np.random.RandomState(seed)
-    out = {}
-    for k, v in model.state_dict().items():
-        shape = tuple(v.shape)
-        if k.endswith("running_var") or (k.endswith("weight") and "bn" in k.split(".")[-2]):
-            a = rng.uniform(0.5, 1.5, shape)
-        elif k.endswith("fusion_weights"):
-            a = rng.uniform(0.2, 1.5, shape)
-        elif k.endswith("weight") and len(shape) == 4:
-            a = rng.normal(0, (1.5 / int(np.prod(shape[1:]))) ** 0.5, shape)
-        elif k == "class_net.net.final.pointwise.bias":
-            a = rng.normal(-4.6, 0.3, shape)
-        else:
-            a = rng.normal(0, 0.2, shape)
-        out[k] = torch.from_numpy(a.astype(np.float32))
-    return out
 
 
 def _train_card_vs_cpu(et, devices=("cuda", "cpu")):
@@ -1638,7 +1654,7 @@ def _train_card_vs_cpu(et, devices=("cuda", "cpu")):
 
     cfg = dataclasses.replace(et.ModelConfig.for_phi(0, num_classes=6, image_size=128),
                               bifpn_width=16, bifpn_depth=2, head_depth=2, survival_prob=1.0)
-    weights = _slim_state_dict(et.EfficientDet(cfg), seed=0)
+    weights = drawn_state_dict(et.EfficientDet(cfg), seed=0)
     batch = _bench_train_batch(128, 2, seed=4)
     batch["gt_labels"] = np.where(batch["gt_labels"] >= 0, batch["gt_labels"] % 6, -1).astype(np.int32)
     batch["gt_boxes"] = np.clip(batch["gt_boxes"], 0, 127)
@@ -2199,19 +2215,6 @@ PAR_CACHE_IMAGES = 37  # an odd pool: the sharded cache wrap-pads it
 PAR_TIMEOUT = 420  # seconds the two ranks may take, start-up included
 
 
-def _drawn_d0(et, device, seed=0, dtype=None):
-    """D0@512, 90 classes, every weight and BN statistic drawn with numpy
-    (``_slim_state_dict``: statistics away from the identity, so that the
-    steps' BN statistics are not float32 noise around 0). ``dtype``
-    float64: computed and held in float64, the same drawn values."""
-    import torch
-
-    dtype = dtype or torch.float32
-    model, _ = et.build_efficientdet(0, num_classes=90, seed=seed, device=device, dtype=dtype)
-    model.to(dtype).load_state_dict(_slim_state_dict(model, seed))
-    return model
-
-
 def _step_outputs(state, metrics):
     """What a step leaves, on the host: metrics, Adam's first moments (0.1
     g after one step), BN statistics and parameters."""
@@ -2284,7 +2287,7 @@ def _eval_grads(et, host, mesh=None):
     from efficientdet_tpu_torch.train_lib import _loss
 
     device = DEVICE if mesh is None else mesh.device
-    model = _drawn_d0(et, device)
+    model = drawn_model(device)
     tc = et.TrainConfig(batch_size=len(host["images"]), max_gt_boxes=TRAIN_MAX_GT)
     b = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     images = preprocess_batch_fixed(b["images"])
@@ -2343,7 +2346,7 @@ def _parallel_rank(mesh, global_batch, spatial_batch, cache_indices):
     dev = mesh.device
 
     def train(make, batch, dtype=None):
-        model = _drawn_d0(et, dev, dtype=dtype).train()
+        model = drawn_model(dev, dtype=dtype).train()
         tc = et.TrainConfig(batch_size=len(batch["images"]), max_gt_boxes=TRAIN_MAX_GT)
         step = make(model, tc, mesh)  # rank 0's weights, then the state made from them
         state = et.create_train_state(model, tc, dev)
@@ -2481,7 +2484,7 @@ def phase_parallel(et, kernels, card, pipeline_ms, train_rec):
         batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
         outs, ms = {}, {}
         for name, make in (("sharded", make_sharded_train_step), ("one_process", None)):
-            model = _drawn_d0(et, DEVICE)
+            model = drawn_model(DEVICE)
             tc = et.TrainConfig(batch_size=PAR_TRAIN_BATCH, max_gt_boxes=TRAIN_MAX_GT)
             step = counted(make(model, tc, mesh)) if make else et.make_train_step(model, tc, DEVICE)
             holder = {"state": et.create_train_state(model, tc, DEVICE)}
@@ -2514,7 +2517,7 @@ def phase_parallel(et, kernels, card, pipeline_ms, train_rec):
         check("spatial_predict_world1_equals_predict_pipeline", rec.pop("ok"), **rec)
         step_outs = {}
         for name, make in (("spatial", make_spatial_train_step), ("one_process", None)):
-            model = _drawn_d0(et, DEVICE)
+            model = drawn_model(DEVICE)
             tc = et.TrainConfig(batch_size=PAR_SPATIAL_BATCH, max_gt_boxes=TRAIN_MAX_GT)
             step = counted(make(model, tc, mesh)) if make else et.make_train_step(model, tc, DEVICE)
             state = et.create_train_state(model, tc, DEVICE)
@@ -2548,7 +2551,7 @@ def phase_parallel(et, kernels, card, pipeline_ms, train_rec):
 
     def one_process(batch, dtype=None):
         held = _fresh_peak()
-        model = _drawn_d0(et, DEVICE, dtype=dtype)
+        model = drawn_model(DEVICE, dtype=dtype)
         tc = et.TrainConfig(batch_size=len(batch["images"]), max_gt_boxes=TRAIN_MAX_GT)
         state, m = et.make_train_step(model.train(), tc, DEVICE)(
             et.create_train_state(model, tc, DEVICE),
@@ -2632,6 +2635,272 @@ def phase_parallel(et, kernels, card, pipeline_ms, train_rec):
     return rec
 
 
+# the family phase: bench.py's batch for D4, the JAX README's elsewhere
+FAMILY_BATCH = {1: 64, 2: 64, 3: 32, 4: 64, 5: 16, 6: 16, 7: 8}
+FAMILY_STEPS = 5  # timed calls a phi after FAMILY_WARMUP
+FAMILY_WARMUP = 2
+# the family's weights: drawn with conv variance 1 / fan-in (at the tests'
+# 1.5 the B6 backbone of D6/D7 amplifies float32 rounding past the
+# gpu_vs_cpu rule on the CPU alone; build_efficientdet's init grows D1-D7's
+# features to 1e2-1e11)
+FAMILY_GAIN = 1.0
+# tools/bench_train.py --phi 4 --remat: D4@1024, batch 16, 2 warm-up and 4 timed steps
+FAMILY_TRAIN_PHI = 4
+FAMILY_TRAIN_SIZE = 1024
+FAMILY_TRAIN_BATCH = 16
+FAMILY_TRAIN_WARMUP = 2
+FAMILY_TRAIN_STEPS = 4
+
+
+def _recording(module, name, calls):
+    """Swap ``module.name`` for a wrapper that appends each call's arguments
+    to ``calls``; returns the restore function."""
+    orig = getattr(module, name)
+
+    def wrapper(*args):
+        calls.append(args)
+        return orig(*args)
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, orig)
+
+
+def _head_check(hk, x, k, b, a):
+    """The head kernel against its plain version on the main path's own
+    inputs: at most one bf16 ulp (phase head_kernel's rule)."""
+    import torch
+
+    z, amax, _ = hk.head_pointwise_anchor_major(x, k, b, a)
+    zr, ar, _ = hk.head_pointwise_reference(x, k, b, a)
+    out = k.shape[1] // a
+    over = (z.float() - zr.float()).abs() / (2.0 ** -7 * zr.float().abs() + 1e-4)
+    over_a = (amax.float() - ar.float()).abs() / (2.0 ** -7 * ar.float().abs() + 1e-4)
+    ok = bool(over.max() <= 1.0 and over_a.max() <= 1.0)
+    rec = {"M": x.shape[0], "Cin": x.shape[1], "A": a, "out": out,
+           "max_abs_dz": (z.float() - zr.float()).abs().max().item(),
+           "max_abs_damax": (amax.float() - ar.float()).abs().max().item(),
+           "scale": zr.float().abs().max().item(), "tolerance": "|d| <= 2^-7 |ref| + 1e-4",
+           "err_over_tol": max(over.max().item(), over_a.max().item()), "ok": ok}
+    if not ok:  # the worst element against its float64 sum
+        ai, ri, ci = np.unravel_index(int(over.argmax()), tuple(over.shape))
+        terms = x[ri].double() * k[:, ai * out + ci].to(x.dtype).double()
+        rec["worst"] = {"anchor": int(ai), "row": int(ri), "col": int(ci),
+                        "kernel": z[ai, ri, ci].item(), "plain": zr[ai, ri, ci].item(),
+                        "float64": (terms.sum() + b[ai * out + ci].double()).item(),
+                        "sum_abs_terms": terms.abs().sum().item()}
+    del z, zr, over, over_a
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"head kernel disagrees with its plain version: {rec}")
+    return rec
+
+
+def _class_launch_timing(hk, x, k, b, a):
+    """The class launch at the main path's shapes: the call's ms (CUDA
+    events over 10 calls, the time to read), the kernel's device ms
+    (torch.profiler over 3), its bound, and torch.addmm + amax on the same
+    inputs."""
+    import torch
+
+    m, cin = x.shape
+    out = k.shape[1] // a
+    mp = m + (-m) % hk.ROW_TILE
+    ms = cuda_ms(lambda: hk.head_pointwise_anchor_major(x, k, b, a), iters=10)
+    # None where the profiler recorded no kernel (late in the whole script it
+    # recorded D1's launches and none after; with the phase alone it read one
+    # or two of the three at D4-D7): the events' ms is the time to read
+    device = sum(kernel_ms(lambda: hk.head_pointwise_anchor_major(x, k, b, a), calls=3).values())
+    device = device or None
+    kb, bb = k.to(x.dtype).contiguous(), b.to(x.dtype)
+    library = cuda_ms(lambda: torch.addmm(bb, x, kb).view(m, a, out).amax(-1), iters=10)
+    nbytes = m * cin * 2 + cin * a * out * 2 + a * out * 4 + a * mp * out * 2 + a * mp * 2
+    b_ms, b_by = bound(nbytes, 2.0 * m * cin * a * out, PEAK_BF16)
+    torch.cuda.empty_cache()
+    return {"ms": ms, "device_ms": device, "bound_ms": b_ms, "bound_by": b_by,
+            "ms_over_bound": ms / b_ms, "library_ms": library, "bytes": nbytes}
+
+
+def _model_flops(et, model, size):
+    """FLOPs of one image through ``model``'s convolutions and matrix
+    products (utils/profiling.flops_estimate: FlopCounterMode counts those
+    only, where XLA's cost analysis counts every operation)."""
+    import torch
+
+    from efficientdet_tpu_torch.utils.profiling import flops_estimate
+
+    x = torch.zeros((1, size, size, 3), dtype=model.dtype, device=DEVICE)
+    flops = flops_estimate(lambda t: model(t), x)  # the "concat" heads: cuDNN's 1x1 convs
+    if not flops:
+        raise AssertionError("flops_estimate counted nothing")
+    return flops
+
+
+def _family_card_vs_cpu(et, tn, model):
+    """Card against CPU, ``model`` (float32, on the card) at its full
+    resolution, batch 1, its folded weights on both devices (the gpu_vs_cpu
+    rule, ``_heads_card_vs_cpu``)."""
+    import torch
+
+    cfg = model.config
+    cpu = et.EfficientDet(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    models = {"cpu": et.fuse_for_inference(cpu.eval()), "cuda": et.fuse_for_inference(model)}
+    rng = np.random.RandomState(100 + cfg.phi)
+    size = cfg.image_size
+    images = torch.from_numpy(rng.randint(0, 256, (1, size, size, 3)).astype(np.uint8))
+    heads, nms, cpu_s = _heads_card_vs_cpu(tn, models, images)
+    return {"heads": heads, "nms_same_heads": nms, "cpu_forward_s": cpu_s}
+
+
+def _family_phi(et, hk, nk, tn, phi, card):
+    """One phi of the family at its own resolution: bf16, BN folded,
+    "anchor_major", FAMILY_BATCH[phi] images."""
+    import torch
+
+    import efficientdet_tpu_torch.models.heads as heads_mod
+
+    t_phase = time.perf_counter()
+    # the variance-preserving numpy draw: well conditioned at every phi
+    # (experiments/drawn_weights.py)
+    drawn = drawn_model(DEVICE, seed=phi, phi=phi, gain=FAMILY_GAIN)
+    card_vs_cpu = _family_card_vs_cpu(et, tn, drawn)
+    state = drawn.state_dict()
+    del drawn
+    model, cfg = et.build_efficientdet(phi, num_classes=90, dtype=torch.bfloat16, seed=phi,
+                                       device=DEVICE)
+    model.load_state_dict(state)
+    model = et.fuse_for_inference(model)
+    size, batch = cfg.image_size, FAMILY_BATCH[phi]
+    gen = torch.Generator(device=DEVICE).manual_seed(phi)
+    images = torch.randint(0, 256, (batch, size, size, 3), generator=gen, device=DEVICE,
+                           dtype=torch.uint8)
+    predict = et.make_predict_fn(model)
+    for _ in range(FAMILY_WARMUP):
+        _check_detections(predict(images), cfg.num_classes, batch)
+    torch.cuda.synchronize()
+
+    # one call with the counters at 0 and the kernels' inputs recorded
+    head_calls, nms_calls = [], []
+    restore = [_recording(heads_mod, "head_pointwise_anchor_major", head_calls),
+               _recording(tn, "suppression_keep_mask", nms_calls)]
+    hk.head_pointwise_anchor_major.launches = 0
+    nk.suppression_keep_mask.launches = 0
+    try:
+        n = _check_detections(predict(images), cfg.num_classes, batch)
+        torch.cuda.synchronize()
+    finally:
+        for r in restore:
+            r()
+    launches = {"head_pointwise": hk.head_pointwise_anchor_major.launches,
+                "nms_suppress": nk.suppression_keep_mask.launches}
+    if launches != {"head_pointwise": 2, "nms_suppress": 1}:
+        raise AssertionError(f"D{phi}: a call did not go through both kernels: {launches}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(FAMILY_STEPS):
+        out = predict(images)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / FAMILY_STEPS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _check_detections(out, cfg.num_classes, batch)
+    del out
+
+    # the kernels on the inputs the call gave them (inference tensors)
+    (xc, kc, bc, ac), (xb, kb, bb, ab) = head_calls
+    plan = hk.bf16_plan(xc.shape[1], ac, kc.shape[1] // ac)
+    boxes, classes, valid, iou = nms_calls[0]
+    with torch.inference_mode():
+        head = {"class": _head_check(hk, xc, kc, bc, ac), "box": _head_check(hk, xb, kb, bb, ab)}
+        keep = nk.suppression_keep_mask(boxes, classes, valid, iou)
+        keep_ref = nk.suppression_keep_mask_reference(boxes, classes, valid, iou)
+        nms = {"B": boxes.shape[0], "K": boxes.shape[1], "valid": int(valid.sum()),
+               "kept": int(keep.sum()), "equal": bool(torch.equal(keep, keep_ref))}
+        if not nms["equal"]:
+            raise AssertionError(f"D{phi}: NMS kernel differs from its plain version: {nms}")
+        timing = _class_launch_timing(hk, xc, kc, bc, ac)
+    del head_calls, nms_calls, xc, xb, boxes, classes, valid, keep, keep_ref
+    flops = _model_flops(et, model, size)
+    img_s = batch / dt
+    del model, images, predict
+    torch.cuda.empty_cache()
+    return {"phi": phi, "model": f"D{phi}@{size}, 90 classes, BN folded, bf16, anchor_major",
+            "batch": batch, "steps": FAMILY_STEPS, "img_s": img_s, "ms_per_call": dt * 1e3,
+            "peak_mem_gb": peak, "launches_a_call": launches, "num_valid": [int(v) for v in n],
+            "head_plan": plan, "head_check": head, "nms_check": nms, "class_launch": timing,
+            "gflops_per_image": flops / 1e9,
+            "mfu_convs_and_matmuls": flops * img_s / PEAK_BF16,
+            "card_vs_cpu_f32": card_vs_cpu,
+            "seconds": time.perf_counter() - t_phase, "card": card}
+
+
+def phase_family(et, hk, nk, tn, card, pipeline_ms):
+    """D1-D7 at their own resolutions through the main path's two kernels
+    (bench.py's bench_phi for every phi), D0's MFU from phase pipeline's
+    call, and the D4@1024 batch-16 remat training step
+    (tools/bench_train.py --phi 4 --remat)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    d0, d0_cfg = et.build_efficientdet(0, num_classes=90, dtype=torch.bfloat16, seed=0,
+                                       device=DEVICE)
+    d0_flops = _model_flops(et, et.fuse_for_inference(d0), d0_cfg.image_size)
+    del d0
+    d0_img_s = BENCH_BATCH / (pipeline_ms / 1e3)
+    emit({"phase": "family", "model": "D0@512 (phase pipeline, batch 128)",
+          "gflops_per_image": d0_flops / 1e9, "img_s": d0_img_s,
+          "d0_512px_mfu_convs_and_matmuls": d0_flops * d0_img_s / PEAK_BF16,
+          "peak_flops": PEAK_BF16,
+          "note": "mfu counts convolutions and matrix products only (FlopCounterMode), "
+                  "where XLA's cost analysis in bench.py counts every operation",
+          "card": card})
+    launches = {"head_pointwise": 0, "nms_suppress": 0}
+    for phi in sorted(FAMILY_BATCH):
+        rec = _family_phi(et, hk, nk, tn, phi, card)
+        for name, v in rec["launches_a_call"].items():
+            launches[name] += v
+        emit({"phase": "family", **rec})
+
+    host = _bench_train_batch(FAMILY_TRAIN_SIZE, FAMILY_TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+    kernels = {"head_pointwise": hk.head_pointwise_anchor_major,
+               "nms_suppress": nk.suppression_keep_mask}
+    train, model, state, _, _ = _train_timed(
+        et, torch.float32, batch, kernels, card, remat=True, phi=FAMILY_TRAIN_PHI,
+        warmup=FAMILY_TRAIN_WARMUP, steps=FAMILY_TRAIN_STEPS)
+    del model, state, batch
+    torch.cuda.empty_cache()
+    emit({"phase": "family", "train": train})
+    emit({"phase": "family", "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_int8(card):
+    """experiments/int8_microbench.py: int8 against bf16, two-point slopes."""
+    from efficientdet_tpu_torch.experiments import int8_microbench
+    from efficientdet_tpu_torch.experiments.timing import PEAK_INT8
+
+    rec = int8_microbench.run()
+    emit({"phase": "int8", "results": rec, "peak_bf16_tflops": PEAK_BF16 / 1e12,
+          "peak_int8_tops": PEAK_INT8 / 1e12, "card": card})
+
+
+def phase_stage1(card):
+    """experiments/stage1_packing.py: the four stage-1 formulations, forward
+    and weight gradients, bf16, batch 16, 512 px, 48 -> 24; each against ref
+    at 3e-2 before it is timed."""
+    from efficientdet_tpu_torch.experiments import stage1_packing as sp
+
+    recs = sp.run()
+    ref = recs[0]["ms"]
+    for r in recs:
+        r["vs_ref"] = r["ms"] / ref
+    emit({"phase": "stage1_packing", "shape": [sp.BATCH, sp.SIZE, sp.SIZE, sp.CIN, sp.COUT],
+          "dtype": "bf16", "variants": recs, "card": card})
+
+
 def run_phase(name, fn, *args):
     """``{"phase": name}`` on stdout, then ``fn(*args)``; a failure's
     traceback goes to stdout too (with the phase named above it) and the
@@ -2692,6 +2961,9 @@ def main() -> int:
     eval_launches = cli["eval"]["launches"]
     par = run_phase("parallel", phase_parallel, et, kernels, card, ms_per_call, train)
     par_launches = par["launches"]
+    family_launches = run_phase("family", phase_family, et, hk, nk, tn, card, ms_per_call)
+    run_phase("int8", phase_int8, card)
+    run_phase("stage1_packing", phase_stage1, card)
 
     def total(key):
         return sum(t[key] for t in head_t)
@@ -2709,7 +2981,7 @@ def main() -> int:
                 "library_ms": None, "device_ms": tot("device_ms"),
                 "module_ms": sum(b["module_ms"] for b in mb_blocks),
                 "train_cli_eval_launches": eval_launches[f"fused_mbconv_{layout}"],
-                "parallel_launches": par_launches[f"fused_mbconv_{layout}"]}
+                "parallel_launches": par_launches[f"fused_mbconv_{layout}"], "family_launches": 0}
 
     emit({"kernels": [
         {"name": "head_pointwise", "route": "cuda",
@@ -2720,7 +2992,8 @@ def main() -> int:
          "bound_by": head_t[0]["bound_by"], "library_ms": total("library_ms"),
          "device_ms": total("device_ms"), "train_cli_eval_launches": eval_launches["head_pointwise"],
          "export_launches": export_launches["head_pointwise"],
-         "parallel_launches": par_launches["head_pointwise"]},
+         "parallel_launches": par_launches["head_pointwise"],
+         "family_launches": family_launches["head_pointwise"]},
         {"name": "nms_suppress", "route": "cuda",
          "source": "efficientdet_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "efficientdet_tpu/ops/nms_pallas.py:34",
@@ -2729,7 +3002,8 @@ def main() -> int:
          "bound_by": nms_t["bound_by"], "library_ms": None, "device_ms": nms_t["device_ms"],
          "train_cli_eval_launches": eval_launches["nms_suppress"],
          "export_launches": export_launches["nms_suppress"],
-         "parallel_launches": par_launches["nms_suppress"]},
+         "parallel_launches": par_launches["nms_suppress"],
+         "family_launches": family_launches["nms_suppress"]},
         mbconv_row("packed", "experiments/packed_mbconv_pallas.py:201", chain_launches),
         mbconv_row("rp", "experiments/packed_mbconv_pallas.py:360", harness["rp"]),
         mbconv_row("nhwc", "experiments/mbconv_pallas.py:52", harness["nhwc"]),
@@ -2738,7 +3012,7 @@ def main() -> int:
          "max_abs_err": floor_err, "ms": floor["kernel_ms"], "plain_ms": floor_plain,
          "bound_ms": floor["bound_ms"], "bound_by": floor["bound_by"], "library_ms": None,
          "device_ms": floor["device_ms"], "train_cli_eval_launches": eval_launches["tap_floor"],
-         "parallel_launches": par_launches["tap_floor"]},
+         "parallel_launches": par_launches["tap_floor"], "family_launches": 0},
     ], "note": "head_pointwise, nms_suppress: ms per main-path call at batch 128 (head: the "
                "class and the box launch together), the wrapper's call by CUDA events; "
                "device_ms the kernels alone, by torch.profiler; launches over 3 pipeline calls. "
@@ -2752,7 +3026,8 @@ def main() -> int:
                "export_launches: the head and NMS kernels' launches in one eager call of the "
                "export phase's .edz program (D0@512 bf16, batch 32). parallel_launches: each "
                "kernel's launches in the parallel phase, its world-size-1 paths in this process "
-               "and its two gloo ranks together.",
+               "and its two gloo ranks together. family_launches: the head and NMS kernels' "
+               "launches in the family phase's counted calls, one a phi (D1-D7, bf16).",
         "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

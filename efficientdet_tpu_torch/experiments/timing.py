@@ -11,6 +11,7 @@ import torch
 # NVIDIA H100 SXM data sheet: device memory rate and dense peaks
 HBM_BYTES_S = 3.35e12
 PEAK_BF16 = 989e12            # tensor cores
+PEAK_INT8 = 1979e12           # tensor cores, int8 operations a second
 PEAK_F32_CUDA_CORES = 67e12
 # special-function unit (exp, tanh, reciprocal): 16 results a clock on each of
 # the 132 SMs at the 1.98 GHz boost clock

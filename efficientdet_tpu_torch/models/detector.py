@@ -141,12 +141,17 @@ def init_weights(model: EfficientDet, seed: int = 0) -> EfficientDet:
     """Random weights from ``seed``, drawn on the CPU so every device agrees.
 
     Convs: truncated-normal variance scaling on fan-in, scale 2 in the
-    backbone and 1 in the BiFPN and heads. That keeps activations near unit
-    scale through a network whose BNs hold their initial statistics, and
-    the class logits spread a little around the prior (fan-out scaling, the
-    EfficientNet initialiser, makes them vanish, and every logit would equal
-    the bias). Biases are zero except the class head's final bias, the
-    prior -log(99). BNs: scale 1, bias 0, mean 0, var 1.
+    backbone and 1 in the BiFPN and heads, so the class logits spread around
+    the prior (fan-out scaling, the EfficientNet initialiser, makes them
+    vanish, and every logit would equal the bias). Biases are zero except
+    the class head's final bias, the prior -log(99). BNs: scale 1, bias 0,
+    mean 0, var 1. The BNs hold these statistics, so each residual block
+    adds to its input's scale: D0's features stay below about 50, but the
+    deeper backbones grow (D1's C5 to about 2e4; D6/D7's unweighted BiFPN
+    sums reach about 1e11), and there float32 rounding is amplified (D1's
+    float32 head outputs lie 1e-2 of their scale from float64). Weights for
+    comparing two devices or two packages are better drawn as the tests
+    draw them.
     """
     gen = torch.Generator().manual_seed(seed)
     for part, scale in ((model.backbone, 2.0), (model.bifpn, 1.0),

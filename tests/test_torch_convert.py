@@ -134,3 +134,47 @@ def test_backbone_round_trip_and_layouts(trees):
     back = convert.export_tf_style(restored)
     for name in tf_style:
         np.testing.assert_array_equal(back[name], tf_style[name] + 1.0)
+
+
+@pytest.fixture(scope="module", params=range(8))
+def phi_trees(request):
+    """EfficientDet-D``phi`` (90 classes): the JAX variables drawn with numpy
+    over ``jax.eval_shape``'s shapes (no init, no forward), the port's
+    bridged state dict and its model on the meta device (keys and shapes
+    only)."""
+    jcfg = JModelConfig.for_phi(request.param)
+    shapes = jax.eval_shape(JEfficientDet(config=jcfg).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 128, 128, 3)))
+    rng = np.random.default_rng(request.param)
+    variables = jax.tree.map(lambda s: rng.standard_normal(s.shape, dtype=np.float32), shapes)
+    cfg = et.ModelConfig.for_phi(request.param)
+    with torch.device("meta"):
+        model = et.EfficientDet(cfg)
+    return jcfg, cfg, variables, from_flax_variables(variables), model
+
+
+def test_name_map_covers_the_state_dict_at_every_phi(phi_trees):
+    jcfg, cfg, _, state, model = phi_trees
+    name_map = convert.detector_name_map(cfg)
+    assert name_map == jconvert.detector_name_map(jcfg)
+    own = model.state_dict()
+    keys = [convert.torch_key(p) for p in name_map]
+    assert len(keys) == len(set(keys)) == len(own)
+    assert set(keys) == set(own) == set(state)
+    for key, v in own.items():
+        assert state[key].shape == v.shape, key
+    convert.assert_full_coverage(state, name_map)
+
+
+def test_tf_style_export_and_import_at_every_phi(phi_trees):
+    jcfg, cfg, variables, state, _ = phi_trees
+    want = jconvert.export_detector_tf_style(variables, jcfg)
+    got = convert.export_detector_tf_style(state, cfg)
+    assert sorted(got) == sorted(want)
+    for name, arr in want.items():
+        np.testing.assert_array_equal(got[name], np.asarray(arr), err_msg=name)
+    perturbed = {k: np.asarray(v) + 1.0 for k, v in got.items()}
+    back = convert.export_detector_tf_style(convert.import_detector(state, perturbed, cfg), cfg)
+    assert sorted(back) == sorted(perturbed)
+    for name, arr in perturbed.items():
+        np.testing.assert_array_equal(back[name], arr, err_msg=name)

@@ -104,7 +104,8 @@ def test_guard_walks_the_port_experiments(tmp_path):
                  "utils.checkpoint", "utils.cuda_graph", "train_lib", "losses", "anchors",
                  "models.normalization", "models.remat", "utils.convert", "data.csv_", "data.coco",
                  "data.pascal", "data.augment", "data.device_cache", "ops.augment", "evaluation",
-                 "evaluation.coco_eval", "evaluation.voc", "evaluation.host_overlap", "train", "evaluate"):
+                 "evaluation.coco_eval", "evaluation.voc", "evaluation.host_overlap", "train", "evaluate",
+                 "experiments.int8_microbench", "experiments.stage1_packing"):
         assert f"efficientdet_tpu_torch.{name}" in mods
     src = tmp_path / "probe.py"
     src.write_text("from ..experiments import packed_mbconv\nimport experiments.packed_chain\n")
