@@ -15,9 +15,14 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 2. head_kernel: csrc/head_pointwise.cu against its plain version at the
    D0@512 batch-16 shapes (class A=9 x 90, box A=1 x 36), bf16 and f32;
    then, in bf16, the bf16 kernels' edges: a row count that is not a
-   multiple of 128 (the tail tile, past the end of x), Cin 88 (not a
-   multiple of the K chunk) and Cin 384 (the D6/D7 width), both on the
-   streamed plan; then its time at batch 128 (the call's ms by CUDA events, the
+   multiple of 128 (the tail tile, past the end of x); on the streamed
+   plan every phi's Cin (88, not a multiple of the K chunk, 112, 160, 224,
+   288 and the D6/D7 width 384) at 3000 rows, 77 rows (under one tile) at
+   Cin 88 and 384, 1024 rows (whole tiles) at Cin 160 and 384, and the
+   tail tile at Cin 384, and at Cin 160 the odd widths out 91 and 21 and
+   the widest, out 128; every case twice, the two launches equal bit for
+   bit, and on the streamed plan streamed_smem_bytes against the kernel's
+   own count; then its time at batch 128 (the call's ms by CUDA events, the
    kernel's device_ms by torch.profiler, the weights passed as the heads
    pass them) beside its bound and torch.addmm + amax;
 3. nms_kernel: csrc/nms_suppress.cu against its plain version, exactly, on
@@ -147,9 +152,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    at 0 (2 head and 1 NMS launch) and the kernels' inputs recorded, img/s
    over 5 calls after 2 warm-up ones, peak memory, the head kernel's plan
    and both kernels against their plain versions on that call's inputs
-   (head: one bf16 ulp; NMS: exact), the class launch's ms, device ms,
-   bound and torch.addmm + amax there, FLOPs an image and an MFU (both
-   counting convolutions and matrix products only), and the card against
+   (head: one bf16 ulp; NMS: exact), the class and box launches' ms (the
+   call) and device ms (the bare launch, head_kernel.launch_into), both by
+   CUDA events, beside the bound, the plain version and torch.addmm + amax
+   there (the class launch must beat addmm + amax), FLOPs an image and an
+   MFU (both counting convolutions and matrix products only), and the card against
    the CPU in float32 (TF32 off) at batch 1 on the same weights (the
    gpu_vs_cpu rule); D0's MFU from the pipeline phase's call; then D4@1024
    training at batch 16, float32, remat (tools/bench_train.py --phi 4
@@ -342,6 +349,16 @@ def _head_inputs(rows, cin, n, dtype, seed):
     return x, k, b
 
 
+def _streamed_smem_fn():
+    """The kernel's own count of the streamed plan's shared memory
+    (``head_pointwise_streamed_smem``: bytes, 0 if it does not fit)."""
+    from efficientdet_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("head_pointwise").head_pointwise_streamed_smem
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 3
+    return fn
+
+
 def phase_head(hk):
     """Kernel vs plain at batch 16; timing at batch 128 (bf16, the main path)."""
     import torch
@@ -350,15 +367,27 @@ def phase_head(hk):
     checks = []
     worst_bf16 = 0.0
     rows = CHECK_BATCH * D0_PIXELS
-    cases = [(dtype, rows, 64, "D0 batch 16") for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(torch.bfloat16, rows - 77, 64, "tail tile"),
-              (torch.bfloat16, 3000, 88, "Cin 88"),
-              (torch.bfloat16, 3000, 384, "Cin 384")]
-    for dtype, rows, cin, label in cases:
+    heads = ((9, 90), (1, 36))  # the class and the box launch
+    cases = [(dtype, rows, 64, "D0 batch 16", heads) for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(torch.bfloat16, rows - 77, 64, "tail tile", heads)]
+    # the streamed plan (Cin > 64): every phi's width from D1's 88 to D6/D7's
+    # 384, a row count under one 128-row tile, one that is a whole number of
+    # tiles, and one that ends 77 rows into a tile at the widest x (the last
+    # x row read: TMA's out-of-bounds fill past it)
+    cases += [(torch.bfloat16, 3000, cin, f"Cin {cin}", heads) for cin in (88, 112, 160, 224, 288, 384)]
+    cases += [(torch.bfloat16, 77, cin, "under one tile", heads) for cin in (88, 384)]
+    cases += [(torch.bfloat16, 8 * 128, cin, "whole tiles", heads) for cin in (160, 384)]
+    cases += [(torch.bfloat16, rows - 77, 384, "tail tile, Cin 384", heads)]
+    # other class counts: odd widths (scalar stores, no packed max), a
+    # small one, and the widest the kernel takes (out 128)
+    cases += [(torch.bfloat16, 3000, 160, "other widths", ((9, 91), (9, 21), (1, 128)))]
+    smem = _streamed_smem_fn()
+    for dtype, rows, cin, label, widths in cases:
         name = "bf16" if dtype == torch.bfloat16 else "f32"
-        for a, out in ((9, 90), (1, 36)):
+        for a, out in widths:
             x, k, b = _head_inputs(rows, cin, a * out, dtype, seed=a + cin)
             z, amax, m = hk.head_pointwise_anchor_major(x, k, b, a)
+            z2, amax2, _ = hk.head_pointwise_anchor_major(x, k, b, a)
             zr, ar, _ = hk.head_pointwise_reference(x, k, b, a)
             torch.cuda.synchronize()
             zf, zrf = z.float(), zr.float()
@@ -374,18 +403,28 @@ def phase_head(hk):
             else:
                 tol_z, tol_a = 1e-4 * zrf.abs() + 1e-5, 1e-4 * arf.abs() + 1e-5
                 rule = "|d| <= 1e-4 |ref| + 1e-5"
-            ok = bool((dz <= tol_z).all() and (da <= tol_a).all())
+            # two launches on the same inputs: the same bits
+            same = bool(torch.equal(z, z2) and torch.equal(amax, amax2))
+            ok = bool((dz <= tol_z).all() and (da <= tol_a).all()) and same
             rec = {"case": label, "dtype": name, "A": a, "out": out, "Cin": cin, "M": m,
                    "Mp": z.shape[1], "max_abs_dz": dz.max().item(),
-                   "max_abs_damax": da.max().item(), "tolerance": rule, "ok": ok}
+                   "max_abs_damax": da.max().item(), "tolerance": rule,
+                   "two_launches_equal": same, "ok": ok}
             if dtype == torch.bfloat16:
                 rec["plan"] = hk.bf16_plan(cin, a, out)
+                if rec["plan"] == "streamed":
+                    # the wrapper's mirror of the streamed plan's shared memory
+                    rec["smem_bytes"] = smem(cin, a, out)
+                    if rec["smem_bytes"] != hk.streamed_smem_bytes(cin, a, out):
+                        raise AssertionError(f"the streamed plan takes {rec['smem_bytes']} B, "
+                                             f"streamed_smem_bytes counts "
+                                             f"{hk.streamed_smem_bytes(cin, a, out)}: {rec}")
             checks.append(rec)
             if dtype == torch.bfloat16:
                 worst_bf16 = max(worst_bf16, rec["max_abs_dz"], rec["max_abs_damax"])
             if not ok:
                 raise AssertionError(f"head kernel disagrees with its plain version: {rec}")
-            del x, z, zr, zf, zrf, dz
+            del x, z, z2, zr, zf, zrf, dz
 
     timing = []
     for a, out in ((9, 90), (1, 36)):
@@ -2695,29 +2734,34 @@ def _head_check(hk, x, k, b, a):
     return rec
 
 
-def _class_launch_timing(hk, x, k, b, a):
-    """The class launch at the main path's shapes: the call's ms (CUDA
-    events over 10 calls, the time to read), the kernel's device ms
-    (torch.profiler over 3), its bound, and torch.addmm + amax on the same
-    inputs."""
+def _head_launch_timing(hk, x, k, b, a):
+    """One head launch at the main path's shapes (the class or the box
+    launch): the call's ms (CUDA events over 10 calls, the time to read),
+    the kernel's device ms (CUDA events over 10 bare launches into outputs
+    allocated once: ``head_kernel.launch_into``), its bound, its plain
+    version (3 calls) and torch.addmm + amax on the same inputs."""
     import torch
 
     m, cin = x.shape
     out = k.shape[1] // a
     mp = m + (-m) % hk.ROW_TILE
     ms = cuda_ms(lambda: hk.head_pointwise_anchor_major(x, k, b, a), iters=10)
-    # None where the profiler recorded no kernel (late in the whole script it
-    # recorded D1's launches and none after; with the phase alone it read one
-    # or two of the three at D4-D7): the events' ms is the time to read
-    device = sum(kernel_ms(lambda: hk.head_pointwise_anchor_major(x, k, b, a), calls=3).values())
-    device = device or None
+    # what the custom op hands the launcher: no copy of a transposed bf16 view
+    kt, bf = k.to(x.dtype).t().contiguous(), b.float().contiguous()
+    z = torch.empty((a, mp, out), dtype=x.dtype, device=x.device)
+    amax = torch.empty((a, mp), dtype=x.dtype, device=x.device)
+    device = cuda_ms(lambda: hk.launch_into(x, kt, bf, z, amax, a), iters=10)
+    del z, amax
+    plain = cuda_ms(lambda: hk.head_pointwise_reference(x, k, b, a), iters=3, warmup=1)
     kb, bb = k.to(x.dtype).contiguous(), b.to(x.dtype)
     library = cuda_ms(lambda: torch.addmm(bb, x, kb).view(m, a, out).amax(-1), iters=10)
     nbytes = m * cin * 2 + cin * a * out * 2 + a * out * 4 + a * mp * out * 2 + a * mp * 2
     b_ms, b_by = bound(nbytes, 2.0 * m * cin * a * out, PEAK_BF16)
     torch.cuda.empty_cache()
-    return {"ms": ms, "device_ms": device, "bound_ms": b_ms, "bound_by": b_by,
-            "ms_over_bound": ms / b_ms, "library_ms": library, "bytes": nbytes}
+    return {"A": a, "out": out, "M": m, "Cin": cin, "plan": hk.bf16_plan(cin, a, out), "ms": ms,
+            "device_ms": device, "bound_ms": b_ms, "bound_by": b_by, "ms_over_bound": ms / b_ms,
+            "plain_ms": plain, "library_ms": library, "ms_over_library": ms / library,
+            "bytes": nbytes}
 
 
 def _model_flops(et, model, size):
@@ -2818,7 +2862,11 @@ def _family_phi(et, hk, nk, tn, phi, card):
                "kept": int(keep.sum()), "equal": bool(torch.equal(keep, keep_ref))}
         if not nms["equal"]:
             raise AssertionError(f"D{phi}: NMS kernel differs from its plain version: {nms}")
-        timing = _class_launch_timing(hk, xc, kc, bc, ac)
+        timing = {"class": _head_launch_timing(hk, xc, kc, bc, ac),
+                  "box": _head_launch_timing(hk, xb, kb, bb, ab)}
+        if timing["class"]["ms"] >= timing["class"]["library_ms"]:
+            raise AssertionError(f"D{phi}: the class launch is no faster than addmm + amax: "
+                                 f"{timing['class']}")
     del head_calls, nms_calls, xc, xb, boxes, classes, valid, keep, keep_ref
     flops = _model_flops(et, model, size)
     img_s = batch / dt
@@ -2827,7 +2875,7 @@ def _family_phi(et, hk, nk, tn, phi, card):
     return {"phi": phi, "model": f"D{phi}@{size}, 90 classes, BN folded, bf16, anchor_major",
             "batch": batch, "steps": FAMILY_STEPS, "img_s": img_s, "ms_per_call": dt * 1e3,
             "peak_mem_gb": peak, "launches_a_call": launches, "num_valid": [int(v) for v in n],
-            "head_plan": plan, "head_check": head, "nms_check": nms, "class_launch": timing,
+            "head_plan": plan, "head_check": head, "nms_check": nms, "head_launches": timing,
             "gflops_per_image": flops / 1e9,
             "mfu_convs_and_matmuls": flops * img_s / PEAK_BF16,
             "card_vs_cpu_f32": card_vs_cpu,
@@ -2857,10 +2905,15 @@ def phase_family(et, hk, nk, tn, card, pipeline_ms):
                   "where XLA's cost analysis in bench.py counts every operation",
           "card": card})
     launches = {"head_pointwise": 0, "nms_suppress": 0}
+    streamed = {}  # the head kernel's two launches at each phi's shapes
     for phi in sorted(FAMILY_BATCH):
         rec = _family_phi(et, hk, nk, tn, phi, card)
         for name, v in rec["launches_a_call"].items():
             launches[name] += v
+        streamed[f"D{phi}"] = {
+            launch: {key: t[key] for key in ("plan", "M", "Cin", "ms", "device_ms", "bound_ms",
+                                             "plain_ms", "library_ms")}
+            for launch, t in rec["head_launches"].items()}
         emit({"phase": "family", **rec})
 
     host = _bench_train_batch(FAMILY_TRAIN_SIZE, FAMILY_TRAIN_BATCH)
@@ -2874,7 +2927,7 @@ def phase_family(et, hk, nk, tn, card, pipeline_ms):
     torch.cuda.empty_cache()
     emit({"phase": "family", "train": train})
     emit({"phase": "family", "launches": launches, "seconds": time.perf_counter() - t0})
-    return launches
+    return launches, streamed
 
 
 def phase_int8(card):
@@ -2961,7 +3014,8 @@ def main() -> int:
     eval_launches = cli["eval"]["launches"]
     par = run_phase("parallel", phase_parallel, et, kernels, card, ms_per_call, train)
     par_launches = par["launches"]
-    family_launches = run_phase("family", phase_family, et, hk, nk, tn, card, ms_per_call)
+    family_launches, family_heads = run_phase("family", phase_family, et, hk, nk, tn, card,
+                                              ms_per_call)
     run_phase("int8", phase_int8, card)
     run_phase("stage1_packing", phase_stage1, card)
 
@@ -2993,7 +3047,8 @@ def main() -> int:
          "device_ms": total("device_ms"), "train_cli_eval_launches": eval_launches["head_pointwise"],
          "export_launches": export_launches["head_pointwise"],
          "parallel_launches": par_launches["head_pointwise"],
-         "family_launches": family_launches["head_pointwise"]},
+         "family_launches": family_launches["head_pointwise"],
+         "family_launch_ms": family_heads},
         {"name": "nms_suppress", "route": "cuda",
          "source": "efficientdet_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "efficientdet_tpu/ops/nms_pallas.py:34",
@@ -3027,7 +3082,11 @@ def main() -> int:
                "export phase's .edz program (D0@512 bf16, batch 32). parallel_launches: each "
                "kernel's launches in the parallel phase, its world-size-1 paths in this process "
                "and its two gloo ranks together. family_launches: the head and NMS kernels' "
-               "launches in the family phase's counted calls, one a phi (D1-D7, bf16).",
+               "launches in the family phase's counted calls, one a phi (D1-D7, bf16). "
+               "family_launch_ms: the head kernel's class and box launches at each phi's rows "
+               "and Cin (the streamed plan), ms the wrapper's call and device_ms the bare "
+               "launch, both by CUDA events over 10, beside the bound, the plain version "
+               "and addmm + amax.",
         "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,10 @@ unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
 Each run is a fresh process in one tree that builds that tree's head, NMS
 and fused-MBConv kernels and measures them with the harness below, the same
 for both trees: the head kernel's class (A 9, out 90) and box (A 1, out 36) launches
-on D0@512 batch-128 rows in bf16, the weights passed as the heads pass them;
+on D0@512 batch-128 rows in bf16, the weights passed as the heads pass them,
+and both launches again at each phi's own rows and Cin (``FAMILY_ROWS``:
+D1-D7 at their sizes and the JAX README's batches, the streamed plan), with
+their bound and torch.addmm + amax on the same inputs (``d<phi>_<launch>_*``);
 the NMS kernel on random B 128, K 1024, 16-class candidates (chip_smoke.py's
 ``random_bench_K1024``); each as the wrapper call's ms (CUDA events over 20
 calls) and the kernel's device ms (torch.profiler); the fused MBConv kernel at the six
@@ -95,6 +98,28 @@ for a, out, key in ((9, 90, "head_class"), (1, 36, "head_box")):
     rec[key + "_device_ms"] = device_ms(call, "head_pw")
     del x
     torch.cuda.empty_cache()
+
+# D1-D7: (pixel rows of a call, Cin) at each phi's size and batch
+FAMILY_ROWS = {1: (545600, 88), 2: (785664, 112), 3: (534688, 160), 4: (1396736, 224),
+               5: (545600, 288), 6: (545600, 384), 7: (392832, 384)}
+for phi, (rows, cin) in FAMILY_ROWS.items():
+    for a, out, key in ((9, 90, "class"), (1, 36, "box")):
+        g = torch.Generator(device="cuda").manual_seed(phi)
+        x = torch.randn(rows, cin, generator=g, device="cuda").bfloat16()
+        kb = (torch.randn(cin, a * out, generator=g, device="cuda") * cin ** -0.5).bfloat16()
+        b = torch.randn(a * out, generator=g, device="cuda") * 0.5 - 2.0
+        k = kb.t().contiguous().t()  # the transposed view of a bf16 conv weight
+        call = lambda: hk.head_pointwise_anchor_major(x, k, b, a)
+        name = f"d{phi}_{key}"
+        rec[name + "_ms"] = event_ms(call)
+        rec[name + "_device_ms"] = device_ms(call, "head_pw")
+        bb = b.bfloat16()
+        rec[name + "_library_ms"] = event_ms(lambda: torch.addmm(bb, x, kb).view(rows, a, out).amax(-1))
+        mp = rows + (-rows) % 512
+        nbytes = rows * cin * 2 + cin * a * out * 2 + a * out * 4 + a * mp * out * 2 + a * mp * 2
+        rec[name + "_bound_ms"] = max(nbytes / 3.35e12, 2.0 * rows * cin * a * out / 989e12) * 1e3
+        del x
+        torch.cuda.empty_cache()
 
 rng = np.random.RandomState(1)
 xy = rng.uniform(0, 400, (128, 1024, 2))

@@ -20,9 +20,11 @@ CPU implementation is :func:`head_pointwise_reference`, and any other device
 raises.
 In bf16 the launcher picks one of two plans from the widths
 (:func:`bf16_plan`): ``"resident"`` (Cin <= 64) keeps every anchor's
-weights in shared memory (D0's class and box launches), ``"streamed"``
-stages one anchor's weights per K chunk (wider inputs, up to the D6/D7
-width 384).
+weights in shared memory (D0's class and box launches); ``"streamed"``
+(wider inputs, D1's 88 up to the D6/D7 width 384) stages each 128-row x
+tile once by TMA and runs every anchor over it with wgmma, the weights
+streaming through a ring of (anchor, K chunk) slabs. Its shared memory is
+mirrored by :func:`streamed_smem_bytes`.
 """
 
 from __future__ import annotations
@@ -34,6 +36,33 @@ import torch
 
 ROW_TILE = 512
 _MAX_OUT = 128  # the kernel keeps at most 8 columns of 16 threads
+SMEM_OPTIN = 232448  # shared memory a block may ask for on Hopper
+
+
+def streamed_smem_bytes(cin: int, num_anchors: int, out_per: int,
+                        smem_max: int = SMEM_OPTIN) -> int:
+    """Shared memory the streamed plan asks for at these widths, 0 if it
+    does not fit in ``smem_max``: the layout of ``streamed_layout`` and the
+    choice of ``pick_streamed`` in ``csrc/head_pointwise.cu``.
+
+    1,024 B of slack to align the base, then XSETS tile sets of ceil(Cin/64)
+    x chunks of 128 x 64 bf16, a ring of RING weight slabs of NCOLS x 64
+    bf16 (NCOLS = out rounded up to 8), the biases (A x NCOLS float32), two
+    staging tiles of 16 x out bf16 for each of 8 consumer warps, and an
+    8-byte full and empty mbarrier for each x chunk and ring slot. Two tile
+    sets with the largest ring of 4-8 slabs that fits, else one set with
+    2-8.
+    """
+    ncols = -(-out_per // 8) * 8
+    nk = -(-cin // 64)
+    for xsets, least in ((2, 4), (1, 2)):
+        for ring in range(8, least - 1, -1):
+            nbytes = (1024 + xsets * nk * 128 * 64 * 2 + ring * ncols * 64 * 2
+                      + num_anchors * ncols * 4 + 8 * 2 * 16 * out_per * 2
+                      + (2 * xsets * nk + 2 * ring) * 8)
+            if nbytes <= smem_max:
+                return nbytes
+    return 0
 
 
 def head_pointwise_reference(
@@ -83,8 +112,6 @@ def _head_pointwise_fake(x2d, kernel, bias, num_anchors):
 @_head_pointwise_op.register_kernel("cuda")
 def _head_pointwise_cuda(x2d, kernel, bias, num_anchors):
     """Launch csrc/head_pointwise.cu on the current stream."""
-    from . import cuda_build
-
     m, cin = x2d.shape
     ac = kernel.shape[-1]
     if x2d.dtype not in (torch.float32, torch.bfloat16):
@@ -110,7 +137,21 @@ def _head_pointwise_cuda(x2d, kernel, bias, num_anchors):
     mp = m + (-m) % ROW_TILE
     z = torch.empty((num_anchors, mp, out_per), dtype=x2d.dtype, device=x2d.device)
     amax = torch.empty((num_anchors, mp), dtype=x2d.dtype, device=x2d.device)
+    launch_into(x2d, kt, b, z, amax, num_anchors)
+    return z, amax
 
+
+def launch_into(x2d: torch.Tensor, kt: torch.Tensor, bias: torch.Tensor, z: torch.Tensor,
+                amax: torch.Tensor, num_anchors: int) -> None:
+    """The kernel alone on the current stream: ``x2d`` (M, Cin), ``kt``
+    (A*out, Cin) in x2d's dtype, ``bias`` float32, into ``z`` (A, Mp, out)
+    and ``amax`` (A, Mp), all contiguous CUDA tensors, as the custom op
+    prepares them. The op's CUDA implementation calls it; a timing of the
+    launch without the op's allocations calls it directly."""
+    from . import cuda_build
+
+    m, cin = x2d.shape
+    mp, out_per = z.shape[1], z.shape[2]
     lib = cuda_build.load("head_pointwise")
     fn = lib.head_pointwise_launch
     fn.restype = ctypes.c_int
@@ -118,13 +159,12 @@ def _head_pointwise_cuda(x2d, kernel, bias, num_anchors):
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         err = fn(
-            x2d.data_ptr(), kt.data_ptr(), b.data_ptr(), z.data_ptr(), amax.data_ptr(),
+            x2d.data_ptr(), kt.data_ptr(), bias.data_ptr(), z.data_ptr(), amax.data_ptr(),
             m, mp, cin, num_anchors, out_per,
             0 if x2d.dtype == torch.float32 else 1, stream,
         )
     cuda_build.check(lib, "head_pointwise", err)
     head_pointwise_anchor_major.launches += 1
-    return z, amax
 
 
 head_pointwise_anchor_major.launches = 0

@@ -3,8 +3,10 @@
 The CUDA kernel itself runs only on a GPU; chip_smoke.py holds it against
 this plain version there. Here the plain version meets the JAX reference
 (``head_pointwise_reference``) and the Pallas kernel in interpret mode, as
-tests/test_head_pallas.py runs it. Both sides sum 64-128 float32 products
-in another order, so they agree to rtol/atol 1e-5.
+tests/test_head_pallas.py runs it. Both sides sum 32-384 float32 products
+in another order, so they agree to rtol/atol 1e-5. The streamed plan's
+shared-memory mirror is held to what a block may have at every width the
+heads give it.
 """
 
 import jax.numpy as jnp
@@ -18,8 +20,10 @@ from efficientdet_tpu.ops.head_pallas import (
 )
 from efficientdet_tpu_torch.ops.head_kernel import (
     ROW_TILE,
+    SMEM_OPTIN,
     head_pointwise_anchor_major,
     head_pointwise_reference,
+    streamed_smem_bytes,
 )
 
 
@@ -36,6 +40,11 @@ def _inputs(seed, m, cin, a, out):
     (700, 32, 9, 4),     # padded rows
     (1000, 64, 9, 90),   # the class head's widths
     (777, 64, 1, 36),    # the box head's widths
+    # the streamed plan's widths (D1's 88, D6/D7's 384), M no multiple of 128
+    (1000, 88, 9, 90),
+    (1000, 384, 9, 90),
+    (777, 88, 1, 36),
+    (777, 384, 1, 36),
 ])
 def test_plain_matches_jax(m, cin, a, out):
     x, k, b = _inputs(m + out, m, cin, a, out)
@@ -84,3 +93,16 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert head_pointwise_anchor_major.launches == before  # no kernel launched
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+
+
+
+@pytest.mark.parametrize("a,out", [(9, 90), (1, 36)])
+@pytest.mark.parametrize("cin", range(88, 385, 8))
+def test_streamed_plan_fits_a_block(cin, a, out):
+    # every Cin 88-384 the D1-D7 heads (and the widths between) give the
+    # streamed plan, for the class and the box launch
+    nbytes = streamed_smem_bytes(cin, a, out)
+    assert 0 < nbytes <= SMEM_OPTIN
+    # the plan takes the largest layout that fits: less room, a smaller one
+    assert streamed_smem_bytes(cin, a, out, smem_max=nbytes) == nbytes
+    assert streamed_smem_bytes(cin, a, out, smem_max=nbytes - 1) < nbytes

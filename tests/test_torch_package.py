@@ -236,6 +236,35 @@ def test_kernels_on_the_gpu():
 
 
 @pytest.mark.cuda
+def test_streamed_head_plan_on_the_gpu():
+    """On a GPU: the head kernel's streamed plan (bf16, Cin 88 and 384, the
+    class and the box launch, rows that end inside a 128-row tile) within
+    one bf16 ulp of its plain version, padded rows holding the bias only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs the kernels at full size")
+    from efficientdet_tpu_torch.ops.head_kernel import (
+        bf16_plan,
+        head_pointwise_anchor_major,
+        head_pointwise_reference,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    for cin in (88, 384):
+        for a, out in ((9, 90), (1, 36)):
+            assert bf16_plan(cin, a, out) == "streamed"
+            x = torch.randn(1000, cin, generator=g).bfloat16().cuda()
+            k = (torch.randn(cin, a * out, generator=g) * cin ** -0.5).cuda()
+            b = torch.randn(a * out, generator=g).cuda()
+            z, amax, m = head_pointwise_anchor_major(x, k, b, a)
+            zr, ar, _ = head_pointwise_reference(x, k, b, a)
+            for got, want in ((z, zr), (amax, ar)):
+                got, want = got.float(), want.float()
+                assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-4).all())
+            pad = b.bfloat16().float().reshape(a, 1, out).expand(a, z.shape[1] - m, out)
+            assert torch.equal(z[:, m:].float(), pad)
+
+
+@pytest.mark.cuda
 def test_mbconv_and_floor_kernels_on_the_gpu():
     """On a GPU: the fused MBConv's three launchers and the floor kernel
     against their plain versions, small shapes (float32, TF32 off)."""
