@@ -163,15 +163,44 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    --remat): 2 warm-up and 4 timed steps, ms/step, img/s, peak memory,
    every loss and gradient norm finite, the last timed loss below the
    first;
-17. int8: experiments/int8_microbench.py (the JAX script's keys: int8
+17. entry_points: every entry point above D0 at D4@1024 and D7@1536, on
+   weights drawn at FAMILY_GAIN with their BN statistics calibrated
+   (experiments/drawn_weights.calibrate_bn): the Predictor in f32 and bf16,
+   score threshold 0, at 1080x1920 and 300x200 sources: each shape's graph
+   holds 1 NMS launch (counted at capture; its heads are convolutions, as
+   the JAX Predictor's), two replays equal eager() bit for bit, ms per
+   image (median of 20) replayed and eager, capture seconds, the graph
+   pool's MB; the anchor-major pipeline on the Predictor's model in a graph
+   (2 head launches, the streamed plan in bf16 and the f32 kernel in f32 at
+   Cin 224/384, and 1 NMS launch; replay equal to eager bit for bit); in
+   f32 both against the CPU at the Predictor rule (counts and classes
+   exact, boxes 1e-3 px, scores 1e-5, near-ties in either order); the server (bf16, BN folded,
+   batch 16 at D4 and 8 at D7, every bucket captured by warmup()) in
+   closed loops at C = 1 and C = batch on 480x640 sources, every answer
+   equal to predict_pipeline's detections of its source, img/s and
+   p50/p95 (p99 from 200 answers; each level runs 2 s and until 100
+   answers came back); the .edz artifact (bf16, BN folded, batch 8)
+   exported on the card, its manifest's model block, eager and replayed
+   equal to predict_pipeline bit for bit, export and load seconds,
+   artifact MB, from_artifact at C = 1 and 8, and, after every timed
+   section, a fresh process that loads and runs it, equal bit for bit;
+   make_sharded_predict_fn at D7 on an NCCL group of one rank, batch 8,
+   equal to make_predict_fn bit for bit, img/s of both; one training step
+   (TF32 off) of the CPU tests' reduced D4 and D7 (256 px, BiFPN width 64)
+   on the card and the CPU in float32 and float64: the float64 steps to
+   each other by the step rule at FLOAT64_SCALE, the card's float32 step
+   against the CPU's float64 step by parallel/tolerances.deep_step_errors
+   (loss, BN statistics, gradient norm); the phase's launches and the
+   launches its graphs hold;
+18. int8: experiments/int8_microbench.py (the JAX script's keys: int8
    against bf16 for a 4096^3 product, a 3x3 and a depthwise 3x3 conv at
    (8, 224, 128, 128), two-point slopes over CUDA graphs of chained
    iterations, *_int8_error where an int8 op does not run) beside the
    card's bf16 and int8 dense peaks;
-18. stage1_packing: experiments/stage1_packing.py (the stage-1 block's four
+19. stage1_packing: experiments/stage1_packing.py (the stage-1 block's four
    formulations at batch 16, 512 px, 48 -> 24, bf16, forward and weight
    gradients; each against ref at rtol/atol 3e-2, then its ms);
-19. the kernels line, the card line, and the last line,
+20. the kernels line, the card line, and the last line,
    {"ok": true, "device": {...}}.
 
 Before each phase a line {"phase": "<name>"}; a phase's failure prints
@@ -204,6 +233,7 @@ from efficientdet_tpu_torch.experiments.timing import (
     cuda_ms,
     kernel_ms,
 )
+from efficientdet_tpu_torch.utils.detections import detection_mismatch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -1223,21 +1253,29 @@ def _http_check(pred, src, expected):
     return rec
 
 
-def _closed_loop(pred, images, expected, clients, seconds, warmups=False):
+P99_MIN_ANSWERS = 200  # fewer answers leave a p99 that is one of the few slowest: not printed
+
+
+def _closed_loop(pred, images, expected, clients, seconds, warmups=False, min_answers=0):
     """C client threads, each calling predict_sync in a loop for ``seconds``
-    (the JAX package's tools/bench_serve.py load, in process). Every answer
-    must equal one of ``expected[j]``, the pipeline's detections of source j
-    at each bucket size. ``warmups``: another thread calls ``warmup()`` over
-    and over meanwhile, as a live server may."""
+    and until ``min_answers`` answers came back (the JAX package's
+    tools/bench_serve.py load, in process). Every answer must equal one of
+    ``expected[j]``, the pipeline's detections of source j at each bucket
+    size. ``warmups``: another thread calls ``warmup()`` over and over
+    meanwhile, as a live server may. p99 is None under P99_MIN_ANSWERS
+    answers."""
     from efficientdet_tpu_torch.serve import PredictorOverloaded
 
     lat, counts, lock = [], {"overloaded": 0, "timeouts": 0, "warmups": 0}, threading.Lock()
     errors = []
     stop = time.perf_counter() + seconds
 
+    def running():
+        return time.perf_counter() < stop or len(lat) < min_answers
+
     def client(k):
         i = k
-        while time.perf_counter() < stop:
+        while running() and not errors:
             j = i % len(images)
             i += 1
             t0 = time.perf_counter()
@@ -1264,7 +1302,7 @@ def _closed_loop(pred, images, expected, clients, seconds, warmups=False):
 
     def warmer():
         try:
-            while time.perf_counter() < stop:
+            while running() and not errors:
                 pred.warmup()
                 counts["warmups"] += 1
         except Exception as e:  # noqa: BLE001 — reported below, the run fails
@@ -1285,7 +1323,8 @@ def _closed_loop(pred, images, expected, clients, seconds, warmups=False):
     lat_a = np.asarray(lat)
     return {"clients": clients, "n": len(lat), "img_s": len(lat) / elapsed,
             "p50_ms": float(np.percentile(lat_a, 50)), "p95_ms": float(np.percentile(lat_a, 95)),
-            "p99_ms": float(np.percentile(lat_a, 99)), **counts, "elapsed_s": elapsed}
+            "p99_ms": float(np.percentile(lat_a, 99)) if len(lat) >= P99_MIN_ANSWERS else None,
+            **counts, "elapsed_s": elapsed}
 
 
 def phase_serve(et, hk, nk, card):
@@ -1680,16 +1719,11 @@ def _train_timed(et, dtype, batch, kernels, card, remat=False, phi=0,
     return rec, model, state, step, gen
 
 
-def _train_card_vs_cpu(et, devices=("cuda", "cpu")):
-    """One f32 step (TF32 off) of the slim model (tests/conftest.py's
-    ``slim_d0``: B0, BiFPN and heads at width 16, depth 2, 128 px, 6
-    classes; survival 1.0), the same numpy-drawn weights on the card and the
-    CPU: loss within 1e-5 relative, the gradient (Adam's first moment after
-    one step, 0.1 g) within 1e-4 of each leaf's largest plus 1e-6 of the
-    model's largest, BN statistics within 1e-5: the tier-1 tolerances."""
+def _slim_train_case(et):
+    """tests/conftest.py's ``slim_d0`` (B0, BiFPN and heads at width 16,
+    depth 2, 128 px, 6 classes; survival 1.0) with drawn weights and a
+    uint8 batch of 2: ``_train_card_vs_cpu``'s arguments."""
     import dataclasses
-
-    import torch
 
     cfg = dataclasses.replace(et.ModelConfig.for_phi(0, num_classes=6, image_size=128),
                               bifpn_width=16, bifpn_depth=2, head_depth=2, survival_prob=1.0)
@@ -1697,32 +1731,56 @@ def _train_card_vs_cpu(et, devices=("cuda", "cpu")):
     batch = _bench_train_batch(128, 2, seed=4)
     batch["gt_labels"] = np.where(batch["gt_labels"] >= 0, batch["gt_labels"] % 6, -1).astype(np.int32)
     batch["gt_boxes"] = np.clip(batch["gt_boxes"], 0, 127)
-    tc = et.TrainConfig(batch_size=2)
+    label = "slim D0: B0, BiFPN/heads width 16 depth 2, 128 px, 6 classes, survival 1.0"
+    return cfg, weights, batch, label, False
+
+
+def _train_card_vs_cpu(et, cfg, weights, batch, label, deep, devices=("cuda", "cpu")):
+    """One f32 step (TF32 off) of ``cfg`` from ``weights`` on ``batch`` on
+    the card and on the CPU, held by efficientdet_tpu_torch/parallel/
+    tolerances.py. Not ``deep``: the tier-1 rules (``step_errors``: loss
+    1e-5 relative, the gradient 1e-4 of each leaf's largest plus 1e-6 of
+    the model's, BN statistics 1e-5). ``deep`` (D4/D7, where float32
+    rounding alone moves the gradients past those rules): both devices
+    also step in float64; the two float64 steps are held to each other by
+    ``step_errors`` at FLOAT64_SCALE, and the card's float32 step (the
+    CPU's reported beside it) against the CPU's float64 step by
+    ``deep_step_errors`` (loss, BN statistics, the gradient norm within
+    1e-2). The batch's images are float32, which every step takes as
+    normalised."""
+    import torch
+
+    from efficientdet_tpu_torch.parallel import tolerances as T
+
+    runs = [("card", devices[0], torch.float32), ("cpu", devices[1], torch.float32)]
+    if deep:
+        runs += [("card_float64", devices[0], torch.float64), ("cpu_float64", devices[1], torch.float64)]
+    tc = et.TrainConfig(batch_size=len(batch["images"]))
     out = {}
-    for dev in devices:
-        model = et.EfficientDet(cfg)
+    for name, dev, dtype in runs:
+        model = et.EfficientDet(cfg, dtype).to(dtype)
         model.load_state_dict(weights)
         model.to(dev)
         state = et.create_train_state(model, tc, device=dev)
         state, m = et.make_train_step(model, tc, device=dev)(state, batch)
-        out[dev] = ({k: float(v) for k, v in m.items()},
-                    {k: v.detach().cpu() for k, v in state.opt_state["mu"].items()},
-                    {k: v.detach().cpu() for k, v in state.batch_stats.items()})
-    (mg, mug, sg), (mc, muc, sc) = out[devices[0]], out[devices[1]]
-    loss_rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in ("loss", "cls_loss", "box_loss")}
-    noise = 1e-6 * max(float(v.abs().max()) for v in muc.values())
-    grad_worst, grad_leaf = 0.0, None
-    for k, want in muc.items():
-        err = float((mug[k] - want).abs().max()) / (1e-4 * float(want.abs().max()) + noise)
-        if err > grad_worst:
-            grad_worst, grad_leaf = err, k
-    stat_worst = max(float(((sg[k] - v).abs() / (1e-5 * (1 + v.abs()))).max()) for k, v in sc.items())
-    rec = {"model": "slim D0: B0, BiFPN/heads width 16 depth 2, 128 px, 6 classes, survival 1.0",
-           "batch": 2, "dtype": "float32, TF32 off", "loss_cuda": mg["loss"], "loss_cpu": mc["loss"],
-           "loss_rel_err": loss_rel, "grad_norm_cuda": mg["grad_norm"], "grad_norm_cpu": mc["grad_norm"],
-           "grad_err_over_tol": grad_worst, "grad_worst_leaf": grad_leaf,
-           "bn_stats_err_over_tol": stat_worst}
-    if max(loss_rel.values()) > 1e-5 or grad_worst > 1.0 or stat_worst > 1.0:
+        out[name] = _step_outputs(state, m)
+        del model, state
+    rec = {"model": label, "batch": len(batch["images"]), "dtype": "float32, TF32 off",
+           "loss": {k: v[0]["loss"] for k, v in out.items()},
+           "grad_norm": {k: v[0]["grad_norm"] for k, v in out.items()},
+           "num_positives": out["cpu"][0]["num_positives"]}
+    if deep:
+        exact = out["cpu_float64"]
+        rec["errors_over_tolerance"] = T.deep_step_errors(out["card"], exact, lr=tc.learning_rate)
+        rec["cpu_float32_errors_over_tolerance"] = T.deep_step_errors(out["cpu"], exact, lr=tc.learning_rate)
+        rec["float64_errors_over_tolerance"] = T.step_errors(out["card_float64"], exact,
+                                                             lr=tc.learning_rate, scale=T.FLOAT64_SCALE)
+        held = (T.step_holds(rec["errors_over_tolerance"], T.DEEP_HELD)
+                and T.step_holds(rec["float64_errors_over_tolerance"]))
+    else:
+        rec["errors_over_tolerance"] = T.step_errors(out["card"], out["cpu"], lr=tc.learning_rate)
+        held = T.step_holds(rec["errors_over_tolerance"], ("loss", "grad_norm", "grad", "bn_stats"))
+    if not held or not rec["num_positives"] > 0:
         raise AssertionError(f"train: card and CPU steps differ: {rec}")
     return rec
 
@@ -1760,7 +1818,7 @@ def phase_train(et, kernels, card, profile_dir):
     for rec in runs.values():
         emit({"phase": "train_run", **rec})
 
-    vs_cpu = _train_card_vs_cpu(et)
+    vs_cpu = _train_card_vs_cpu(et, *_slim_train_case(et))
 
     # the trained weights: CheckpointManager -> Predictor.from_checkpoint
     # inside the checkout, in the kernels' build directory (not committed)
@@ -2954,6 +3012,526 @@ def phase_stage1(card):
           "dtype": "bf16", "variants": recs, "card": card})
 
 
+# the entry_points phase: every entry point above D0 at D4@1024 and D7@1536
+ENTRY_PHIS = (4, 7)
+# two of the predictor phase's five source shapes: one the model shrinks
+# with antialiasing, one it enlarges
+ENTRY_SHAPES = [(1080, 1920), (300, 200)]
+ENTRY_STEPS = 20  # timed replays a shape (the median is kept)
+ENTRY_EAGER_STEPS = 5  # timed eager calls a shape
+ENTRY_SERVE_BATCH = {4: 16, 7: 8}
+ENTRY_SERVE_SOURCES = 8
+ENTRY_SERVE_SECONDS = 2.0
+ENTRY_SERVE_ANSWERS = 100  # each closed-loop level runs on until this many came back
+ENTRY_EXPORT_BATCH = 8
+ENTRY_EXPORT_STEPS = 5  # timed calls of the artifact, replayed and eager, and of predict_pipeline
+ENTRY_SHARDED_BATCH = 8
+ENTRY_SHARDED_STEPS = 5
+# the training step: tests/torch_entry_train.py's reduced configs and draws
+ENTRY_TRAIN_SIZE = 256
+ENTRY_TRAIN_WIDTH = 64
+ENTRY_TRAIN_BATCH = 2
+ENTRY_FINAL_STD = 0.01
+
+
+class _Captured:
+    """Records the port's kernel launches while open: ``counts``, those made
+    while the launching stream was being captured into a CUDA graph (the
+    launches a graph replays; a replay ticks no Python counter), and, for
+    every head launch, its widths, whether it was captured and its plan.
+    Every wrapper calls ``cuda_build.check`` right after its launch; the
+    head's wrapper goes through ``head_kernel.launch_into``. Blocks may
+    nest: each records what runs inside it."""
+
+    def __init__(self, hk, cuda_build):
+        self.hk, self.cuda_build = hk, cuda_build
+        self.counts = {"head_pointwise": 0, "nms_suppress": 0}
+        self.heads = []
+
+    def __enter__(self):
+        import torch
+
+        check, launch = self.cuda_build.check, self.hk.launch_into
+
+        def counting_check(lib, name, err):
+            check(lib, name, err)
+            if torch.cuda.is_current_stream_capturing() and name in self.counts:
+                self.counts[name] += 1
+
+        def recording_launch(x2d, kt, bias, z, amax, num_anchors):
+            self.heads.append((x2d.shape[1], num_anchors, z.shape[2], x2d.dtype,
+                               torch.cuda.is_current_stream_capturing()))
+            return launch(x2d, kt, bias, z, amax, num_anchors)
+
+        self._restore = (check, launch)
+        self.cuda_build.check, self.hk.launch_into = counting_check, recording_launch
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda_build.check, self.hk.launch_into = self._restore
+        return False
+
+    def _plan(self, cin, a, out, dtype):
+        import torch
+
+        return self.hk.bf16_plan(cin, a, out) if dtype == torch.bfloat16 else "f32"
+
+    def plans(self):
+        """Each captured head launch: its widths and the plan it took."""
+        return [{"Cin": cin, "A": a, "out": out, "plan": self._plan(cin, a, out, dtype)}
+                for cin, a, out, dtype, captured in self.heads if captured]
+
+    def plan_counts(self):
+        """Every head launch in the block (captured or not) by plan."""
+        counts = {}
+        for cin, a, out, dtype, _ in self.heads:
+            plan = self._plan(cin, a, out, dtype)
+            counts[plan] = counts.get(plan, 0) + 1
+        return counts
+
+
+def _entry_model(et, phi, state, dtype, fused=True):
+    """D``phi`` at its own resolution on the card holding ``state``."""
+    model, cfg = et.build_efficientdet(phi, num_classes=90, dtype=dtype, seed=phi, device=DEVICE)
+    model.load_state_dict(state)
+    return (et.fuse_for_inference(model) if fused else model), cfg
+
+
+def _entry_predictor(et, hk, cuda_build, phi, state, card):
+    """The Predictor at D``phi``, f32 and bf16, score threshold 0, on the
+    ENTRY_SHAPES: each shape's first call captures its graph (its launches
+    counted at capture: the NMS kernel once; the heads are convolutions, as
+    in the JAX package's Predictor), two replays equal eager() bit for bit,
+    ms per image (median) replayed and eager, the graph pool's memory; the
+    anchor-major pipeline on the same model in a graph (the head kernel's
+    two launches and their plan: streamed in bf16, the f32 kernel in f32;
+    replay equal to eager bit for bit); in f32 both against the CPU (the
+    Predictor rule, near-ties in either order)."""
+    import torch
+    from efficientdet_tpu_torch.data.common import letterbox_hostside
+    from efficientdet_tpu_torch.utils.cuda_graph import GraphedCall
+
+    rng = np.random.RandomState(40 + phi)
+    images = {hw: [rng.randint(0, 256, hw + (3,)).astype(np.uint8) for _ in range(2)]
+              for hw in ENTRY_SHAPES}
+    out = {}
+    for dtype in ("f32", "bf16"):
+        p = et.Predictor(phi=phi, dtype=dtype, score_threshold=0.0, variables=state, seed=phi)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        rows = []
+        for hw in ENTRY_SHAPES:
+            first, second = images[hw]
+            with _Captured(hk, cuda_build) as cap:
+                t0 = time.perf_counter()
+                replays = [p(first)]  # two warm-up calls, the capture, the first replay
+                capture_s = time.perf_counter() - t0
+            # the JAX Predictor's path: the heads' convolutions (cuDNN here,
+            # XLA there), then the single-image NMS on its kernel
+            if cap.counts != {"head_pointwise": 0, "nms_suppress": 1}:
+                raise AssertionError(f"Predictor D{phi} {dtype} {hw}: the graph holds {cap.counts}")
+            replays.append(p(second))
+            for img, got in zip((first, second), replays):
+                want = p.eager(img)
+                if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"Predictor D{phi} {dtype} {hw}: a replay differs from eager")
+                if not _valid(got, 90) or len(got[1]) == 0:
+                    raise AssertionError(f"Predictor D{phi} {dtype} {hw}: invalid detections")
+            rows.append({"shape": list(hw), "detections": [len(r[1]) for r in replays],
+                         "capture_s": capture_s, "captured_launches": cap.counts,
+                         "graph_ms": _median_ms(lambda: p(first), ENTRY_STEPS),
+                         "eager_ms": _median_ms(lambda: p.eager(first), ENTRY_EAGER_STEPS)})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rec = {"shapes": rows, "replay_equals_eager": "bit for bit",
+               "graph_pool_reserved_mb": (torch.cuda.memory_reserved() - reserved0) / 2 ** 20}
+        # the anchor-major pipeline (the server's and the artifact's path) on
+        # the Predictor's model: the head kernel at this phi's Cin (the
+        # streamed plan in bf16, the f32 kernel in f32) inside a graph
+        canvas = letterbox_hostside(images[ENTRY_SHAPES[0]][0], p.config.image_size)[0]
+        x = torch.from_numpy(canvas[None]).to(DEVICE)
+
+        def pipeline(t, model=p.model):
+            return et.predict_pipeline(model, t, p.eval_config)
+
+        with _Captured(hk, cuda_build) as cap:
+            graph = GraphedCall(pipeline, x, pool=torch.cuda.graph_pool_handle())
+        want_plan = "streamed" if dtype == "bf16" else "f32"
+        plans = cap.plans()
+        replay = [t.clone() for t in graph(x)]
+        with torch.inference_mode():
+            eager = pipeline(x)
+        bit = all(torch.equal(a, b) for a, b in zip(replay, eager))
+        rec["pipeline_graph"] = {"canvas": list(canvas.shape), "captured_launches": cap.counts,
+                                 "head_launches": plans, "replay_equals_eager": bit}
+        if (cap.counts != {"head_pointwise": 2, "nms_suppress": 1} or not bit
+                or any(h["plan"] != want_plan for h in plans)):
+            raise AssertionError(f"pipeline graph D{phi} {dtype}: {rec['pipeline_graph']}")
+        _check_detections(replay, 90, 1)
+        del graph
+        if dtype == "f32":
+            cpu = et.Predictor(phi=phi, dtype="f32", score_threshold=0.0, seed=phi, device="cpu",
+                               variables={k: v.cpu() for k, v in state.items()})
+            img = images[ENTRY_SHAPES[1]][0]
+            t0 = time.perf_counter()
+            c = cpu(img)
+            cpu_s = time.perf_counter() - t0
+            g = p(img)
+            fault = detection_mismatch(g, c, 1e-3, 1e-5)
+            with torch.inference_mode():
+                cpipe = [t.numpy() for t in pipeline(x.cpu(), cpu.model)]
+            rpipe = [t.cpu().numpy() for t in replay]
+            n = int(cpipe[3][0])
+            pipe_fault = (f"counts {int(rpipe[3][0])} and {n}" if int(rpipe[3][0]) != n else
+                          detection_mismatch([t[0, :n] for t in rpipe[:3]], [t[0, :n] for t in cpipe[:3]],
+                                             1e-3, 1e-5))
+            rec["vs_cpu"] = {"shape": list(ENTRY_SHAPES[1]), "detections": [len(g[1]), len(c[1])],
+                             "box_tol_px": 1e-3, "score_tol": 1e-5, "cpu_s": cpu_s,
+                             "held": fault is None,
+                             "pipeline_f32_head_kernel_held": pipe_fault is None}
+            if fault is None and pipe_fault is None:  # scores place by place (sorted on both)
+                rec["vs_cpu"]["max_abs_dscore"] = float(np.abs(g[1] - c[1]).max())
+                rec["vs_cpu"]["pipeline_max_abs_dscore"] = float(
+                    np.abs(rpipe[1][0, :n] - cpipe[1][0, :n]).max())
+            if fault is not None or pipe_fault is not None:
+                raise AssertionError(f"D{phi} f32: card and CPU differ: Predictor {fault}, "
+                                     f"pipeline {pipe_fault}, {rec['vs_cpu']}")
+            del cpu
+        out[dtype] = rec
+        del p
+        torch.cuda.empty_cache()
+    return out
+
+
+def _entry_serve(et, hk, cuda_build, phi, model, cfg, ec, card):
+    """BatchingPredictor over ``model`` (bf16, BN folded): warmup() captures
+    every bucket (launches counted at capture); closed loops at C = 1 and
+    C = batch on 480x640 sources, every answer equal to predict_pipeline's
+    detections of its source at one of the bucket sizes."""
+    import torch
+    from efficientdet_tpu_torch.data.common import letterbox_hostside
+
+    batch = ENTRY_SERVE_BATCH[phi]
+    size = cfg.image_size
+    pred = et.BatchingPredictor(model, batch_size=batch, max_delay_ms=5.0, eval_config=ec,
+                                pipeline_depth=2)
+    threads = torch.get_num_threads()
+    try:
+        with _Captured(hk, cuda_build) as cap:
+            t0 = time.perf_counter()
+            pred.warmup()
+            warmup_s = time.perf_counter() - t0
+        buckets = pred._buckets
+        if cap.counts != {"head_pointwise": 2 * len(buckets), "nms_suppress": len(buckets)}:
+            raise AssertionError(f"serve D{phi}: the bucket graphs hold {cap.counts}")
+        rng = np.random.RandomState(50 + phi)
+        srcs = [rng.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(ENTRY_SERVE_SOURCES)]
+        canvases = [letterbox_hostside(im, size) for im in srcs]
+        expected = [[] for _ in srcs]
+        for b in buckets:
+            order = [j % len(srcs) for j in range(-(-max(b, len(srcs)) // b) * b)]
+            for start in range(0, len(order), b):
+                idx = order[start:start + b]
+                x = torch.from_numpy(np.stack([canvases[j][0] for j in idx])).to(DEVICE)
+                bx, sc, cl, nv = (t.cpu().numpy() for t in et.predict_pipeline(model, x, ec))
+                for r, j in enumerate(idx):
+                    k = int(nv[r])
+                    ans = (bx[r, :k] / canvases[j][1], sc[r, :k], cl[r, :k])
+                    if not any(all(np.array_equal(g, w) for g, w in zip(ans, e)) for e in expected[j]):
+                        expected[j].append(ans)
+        torch.set_num_threads(1)  # serve.main's setting on the card
+        levels = [_closed_loop(pred, srcs, expected, c, ENTRY_SERVE_SECONDS,
+                               min_answers=ENTRY_SERVE_ANSWERS) for c in (1, batch)]
+    finally:
+        pred.close()
+        torch.set_num_threads(threads)
+    return {"batch_size": batch, "buckets": buckets, "warmup_s": warmup_s,
+            "captured_launches": cap.counts, "head_launches": cap.plans(), "source": [480, 640],
+            "answers": "each equal to predict_pipeline's detections of its source at a bucket size",
+            "answer_variants_across_buckets": max(len(e) for e in expected), "levels": levels}
+
+
+def _entry_export(et, hk, nk, cuda_build, phi, model, cfg, ec, root):
+    """The .edz artifact of ``model`` (bf16, BN folded, batch
+    ENTRY_EXPORT_BATCH) exported on the card: loaded, eager and replayed
+    equal to predict_pipeline bit for bit, and from_artifact at C = 1 and C
+    = batch. Returns the record and (phi, path, predict_pipeline's answer)
+    for the fresh process the caller starts once nothing it times runs."""
+    import zipfile
+
+    import torch
+    from efficientdet_tpu_torch import export as ex
+    from efficientdet_tpu_torch.data.common import letterbox_hostside
+    from efficientdet_tpu_torch.utils.cuda_graph import GraphedCall
+
+    size = cfg.image_size
+    rec = {"batch_size": ENTRY_EXPORT_BATCH}
+    path = os.path.join(root, f"d{phi}.edz")
+    t0 = time.perf_counter()
+    ex.save_exported(path, model, ENTRY_EXPORT_BATCH, eval_config=ec)
+    rec["export_s"] = time.perf_counter() - t0
+    with zipfile.ZipFile(path) as zf:
+        manifest = json.loads(zf.read("manifest.json"))
+    rec["artifact_mb"] = os.path.getsize(path) / 1e6
+    rec["manifest_model"] = manifest["model"]
+    if manifest["model"] != {"phi": phi, "image_size": size, "num_classes": 90,
+                             "weighted_bifpn": phi < 6}:
+        raise AssertionError(f"export D{phi}: manifest model block {manifest['model']}")
+    t0 = time.perf_counter()
+    predict, _ = ex.load_exported(path)
+    rec["load_s"] = time.perf_counter() - t0
+    rng = np.random.RandomState(60 + phi)
+    images = rng.randint(0, 256, (ENTRY_EXPORT_BATCH, size, size, 3)).astype(np.uint8)
+    x = torch.from_numpy(images).to(DEVICE)
+    hk.head_pointwise_anchor_major.launches = 0
+    nk.suppression_keep_mask.launches = 0
+    eager = predict(x)
+    torch.cuda.synchronize()
+    rec["launches_one_call"] = {"head_pointwise": hk.head_pointwise_anchor_major.launches,
+                                "nms_suppress": nk.suppression_keep_mask.launches}
+    want = et.predict_pipeline(model, x, ec)
+    _check_detections(want, 90, ENTRY_EXPORT_BATCH)
+    with _Captured(hk, cuda_build) as cap:
+        graph = GraphedCall(predict, x, pool=torch.cuda.graph_pool_handle())
+    replay = [t.clone() for t in graph(x)]
+    rec["captured_launches"] = cap.counts
+    rec["eager_vs_pipeline"] = _close_detections(eager, want, f"artifact D{phi} eager")
+    rec["replay_vs_pipeline"] = _close_detections(replay, want, f"artifact D{phi} replay")
+
+    def synced(fn):
+        def call():
+            fn()
+            torch.cuda.synchronize()
+        return call
+
+    rec["ms"] = {"artifact_replay": _median_ms(synced(lambda: graph(x)), ENTRY_EXPORT_STEPS),
+                 "artifact_eager": _median_ms(synced(lambda: predict(x)), ENTRY_EXPORT_STEPS),
+                 "pipeline_eager": _median_ms(synced(lambda: et.predict_pipeline(model, x, ec)),
+                                              ENTRY_EXPORT_STEPS)}
+    if (rec["launches_one_call"] != {"head_pointwise": 2, "nms_suppress": 1}
+            or cap.counts != {"head_pointwise": 2, "nms_suppress": 1}
+            or not (rec["eager_vs_pipeline"]["bit_for_bit"] and rec["replay_vs_pipeline"]["bit_for_bit"])):
+        raise AssertionError(f"export D{phi}: {rec}")
+    del graph, replay, eager
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    pred = et.BatchingPredictor.from_artifact(path, max_delay_ms=5.0, pipeline_depth=2)
+    try:
+        pred.warmup()
+        srcs = [rng.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(ENTRY_SERVE_SOURCES)]
+        canvases = [letterbox_hostside(im, size) for im in srcs]
+        idx = [j % len(srcs) for j in range(ENTRY_EXPORT_BATCH)]
+        batch = torch.from_numpy(np.stack([canvases[j][0] for j in idx])).to(DEVICE)
+        bx, sc, cl, nv = (t.cpu().numpy() for t in et.predict_pipeline(model, batch, ec))
+        expected = [[(bx[r, :int(nv[r])] / canvases[j][1], sc[r, :int(nv[r])], cl[r, :int(nv[r])])]
+                     for r, j in enumerate(idx[:len(srcs)])]
+        rec["from_artifact"] = {"buckets": pred._buckets, "source": [480, 640],
+                                "levels": [_closed_loop(pred, srcs, expected, c, ENTRY_SERVE_SECONDS,
+                                                        min_answers=ENTRY_SERVE_ANSWERS)
+                                           for c in (1, ENTRY_EXPORT_BATCH)],
+                                "answers": "each equal to predict_pipeline's detections of its source"}
+    finally:
+        pred.close()
+        torch.set_num_threads(threads)
+
+    np.save(os.path.join(root, f"images_d{phi}.npy"), images)
+    return rec, (phi, path, [t.cpu().numpy() for t in want])
+
+
+def _start_fresh(root, phi, path):
+    """A fresh ``python3`` that loads the artifact at ``path`` (building no
+    model) and runs it once on ``images_d{phi}.npy``."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _FRESH_LOAD, ROOT, path, os.path.join(root, f"images_d{phi}.npy"),
+         os.path.join(root, f"fresh_d{phi}.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _fresh_result(root, phi, proc, want):
+    """The fresh process's answer against ``want`` (predict_pipeline's),
+    bit for bit."""
+    log, _ = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"export D{phi}: the fresh process failed:\n{log}")
+    with np.load(os.path.join(root, f"fresh_d{phi}.npz")) as z:
+        got = [z[f"arr_{i}"] for i in range(4)]
+    rec = {"launches": json.loads(log.strip().splitlines()[-1]),
+           **_close_detections(got, want, f"fresh process D{phi}")}
+    if not rec["bit_for_bit"]:
+        raise AssertionError(f"export D{phi}: the fresh process differs: {rec}")
+    return rec
+
+
+def _entry_sharded(et, hk, nk, model, cfg, ec):
+    """make_sharded_predict_fn on an NCCL group of one rank in this process
+    against make_predict_fn, batch ENTRY_SHARDED_BATCH: bit for bit, img/s
+    of both."""
+    import torch
+
+    from efficientdet_tpu_torch.parallel import make_mesh, make_sharded_predict_fn
+    from efficientdet_tpu_torch.parallel.launch import free_port
+
+    size = cfg.image_size
+    gen = torch.Generator(device=DEVICE).manual_seed(70)
+    x = torch.randint(0, 256, (ENTRY_SHARDED_BATCH, size, size, 3), generator=gen, device=DEVICE,
+                      dtype=torch.uint8)
+    mesh = make_mesh(init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                     backend="nccl" if DEVICE == "cuda" else "gloo", device=DEVICE, timeout_s=120)
+    try:
+        if mesh.group is None:
+            raise AssertionError("sharded predict: no process group")
+        sharded = make_sharded_predict_fn(model, mesh, ec)
+        plain = et.make_predict_fn(model, ec)
+        hk.head_pointwise_anchor_major.launches = 0
+        nk.suppression_keep_mask.launches = 0
+        got = sharded(x)
+        torch.cuda.synchronize()
+        launches = {"head_pointwise": hk.head_pointwise_anchor_major.launches,
+                    "nms_suppress": nk.suppression_keep_mask.launches}
+        want = plain(x)
+        _check_detections(got, 90, ENTRY_SHARDED_BATCH)
+        bit = all(torch.equal(a, b) for a, b in zip(got, want))
+        ms = {}
+        for name, fn in (("sharded", sharded), ("make_predict_fn", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ENTRY_SHARDED_STEPS):
+                fn(x)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) / ENTRY_SHARDED_STEPS * 1e3
+    finally:
+        mesh.close()
+    rec = {"backend": "nccl" if DEVICE == "cuda" else "gloo", "world_size": 1,
+           "batch": ENTRY_SHARDED_BATCH, "launches_one_call": launches, "bit_for_bit": bit,
+           "img_s": ENTRY_SHARDED_BATCH / ms["sharded"] * 1e3,
+           "make_predict_fn_img_s": ENTRY_SHARDED_BATCH / ms["make_predict_fn"] * 1e3}
+    if not bit or launches != {"head_pointwise": 2, "nms_suppress": 1}:
+        raise AssertionError(f"sharded predict D7: {rec}")
+    return rec
+
+
+def _entry_train_case(et, phi):
+    """tests/torch_entry_train.py's reduced D``phi`` (its own backbone,
+    fusion, anchor scale and depths; ENTRY_TRAIN_SIZE px, BiFPN width
+    ENTRY_TRAIN_WIDTH, survival 1.0, the heads' final kernels N(0,
+    ENTRY_FINAL_STD)) with drawn weights and a batch of ENTRY_TRAIN_BATCH
+    noise images normalised on the host (so both devices take the same
+    float32 images): ``_train_card_vs_cpu``'s arguments."""
+    import dataclasses
+
+    import torch
+
+    from efficientdet_tpu_torch.ops.preprocess import preprocess_batch_fixed
+
+    cfg = dataclasses.replace(et.ModelConfig.for_phi(phi, num_classes=90, image_size=ENTRY_TRAIN_SIZE),
+                              bifpn_width=ENTRY_TRAIN_WIDTH, survival_prob=1.0)
+    weights = drawn_state_dict(et.EfficientDet(cfg), seed=phi)
+    rng = np.random.RandomState(1000 + phi)
+    for k, v in weights.items():
+        if ".final." in k and k.endswith("weight"):
+            weights[k] = torch.from_numpy(rng.normal(0, ENTRY_FINAL_STD, tuple(v.shape)).astype(np.float32))
+    batch = _bench_train_batch(ENTRY_TRAIN_SIZE, ENTRY_TRAIN_BATCH, seed=phi)
+    batch["images"] = preprocess_batch_fixed(torch.from_numpy(batch["images"])).numpy()
+    label = (f"D{phi} reduced: {cfg.backbone}, BiFPN {ENTRY_TRAIN_WIDTH} x {cfg.bifpn_depth} "
+             f"({'weighted' if cfg.weighted_bifpn else 'unweighted'}), head depth {cfg.head_depth}, "
+             f"anchor scale {cfg.anchor.anchor_scale}, {ENTRY_TRAIN_SIZE} px, batch "
+             f"{ENTRY_TRAIN_BATCH}, survival 1.0")
+    return cfg, weights, batch, label, True
+
+
+def phase_entry_points(et, hk, nk, card):
+    """Every entry point above D0 at D4@1024 and D7@1536 on weights drawn
+    at FAMILY_GAIN with their BN statistics calibrated
+    (experiments/drawn_weights.calibrate_bn): the Predictor (f32 and bf16),
+    the server (bf16, BN folded), the .edz artifact, sharded predict (D7),
+    and one training step card against CPU at the CPU tests' reduced size.
+    Returns the phase's kernel launches (the wrappers' counters) and the
+    launches its graphs hold."""
+    import shutil
+
+    import torch
+
+    from efficientdet_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "efficientdet_tpu_torch", "_build", "smoke_entry")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    kernels = {"head_pointwise": hk.head_pointwise_anchor_major,
+               "nms_suppress": nk.suppression_keep_mask}
+    launches = {name: 0 for name in kernels}
+    captured = {name: 0 for name in kernels}
+    ec = et.EvalConfig(score_threshold=0.0)
+    jobs, fresh = [], []
+
+    def counted(section, fn, *args):
+        """``fn(*args)`` with the counters at 0, its launches added to the
+        phase's; its record emitted with its seconds."""
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        for name, k in kernels.items():
+            launches[name] += k.launches
+        rec = out[0] if isinstance(out, tuple) else out
+        emit({"phase": "entry_points", "section": section, **rec,
+              "seconds": time.perf_counter() - t0, "card": card})
+        return out
+
+    try:
+        with _Captured(hk, cuda_build) as whole:
+            for phi in ENTRY_PHIS:
+                t0 = time.perf_counter()
+                drawn = drawn_model(DEVICE, seed=phi, phi=phi, gain=FAMILY_GAIN, calibrate=True)
+                state = {k: v.detach().clone() for k, v in drawn.state_dict().items()}
+                del drawn
+                emit({"phase": "entry_points", "phi": phi, "weights": "drawn_model(gain=FAMILY_GAIN, "
+                      "calibrate=True)", "seconds": time.perf_counter() - t0})
+                pred = counted(f"predictor D{phi}", _entry_predictor, et, hk, cuda_build, phi, state, card)
+                for dtype in pred:
+                    for row in pred[dtype]["shapes"] + [pred[dtype]["pipeline_graph"]]:
+                        for name, n in row["captured_launches"].items():
+                            captured[name] += n
+                model, cfg = _entry_model(et, phi, state, torch.bfloat16)
+                serve = counted(f"serve D{phi}", _entry_serve, et, hk, cuda_build, phi, model, cfg, ec, card)
+                for name, n in serve["captured_launches"].items():
+                    captured[name] += n
+                export, job = counted(f"export D{phi}", _entry_export, et, hk, nk, cuda_build, phi,
+                                      model, cfg, ec, root)
+                jobs.append(job)
+                for name, n in export["captured_launches"].items():
+                    captured[name] += n
+                if phi == 7:
+                    counted("sharded predict D7", _entry_sharded, et, hk, nk, model, cfg, ec)
+                del model, state
+                torch.cuda.empty_cache()
+            # the artifacts in fresh processes, alongside the training checks
+            # (which time nothing), after every timed section
+            fresh = [(phi, _start_fresh(root, phi, path), want) for phi, path, want in jobs]
+            for phi in ENTRY_PHIS:
+                counted(f"train D{phi}", _train_card_vs_cpu, et, *_entry_train_case(et, phi))
+            for phi, proc, want in fresh:
+                emit({"phase": "entry_points", "section": f"export D{phi} fresh process",
+                      **_fresh_result(root, phi, proc, want)})
+    finally:
+        for _, proc, _ in fresh:
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    by_plan = whole.plan_counts()
+    if sum(by_plan.values()) != launches["head_pointwise"] or by_plan.get("resident"):
+        raise AssertionError(f"entry_points: head launches {launches} by plan {by_plan}")
+    emit({"phase": "entry_points", "launches": launches, "head_launches_by_plan": by_plan,
+          "captured_launches": captured, "seconds": seconds, "card": card})
+    return launches, captured, by_plan
+
+
 def run_phase(name, fn, *args):
     """``{"phase": name}`` on stdout, then ``fn(*args)``; a failure's
     traceback goes to stdout too (with the phase named above it) and the
@@ -3016,6 +3594,8 @@ def main() -> int:
     par_launches = par["launches"]
     family_launches, family_heads = run_phase("family", phase_family, et, hk, nk, tn, card,
                                               ms_per_call)
+    entry_launches, entry_captured, entry_plans = run_phase("entry_points", phase_entry_points, et,
+                                                            hk, nk, card)
     run_phase("int8", phase_int8, card)
     run_phase("stage1_packing", phase_stage1, card)
 
@@ -3048,7 +3628,10 @@ def main() -> int:
          "export_launches": export_launches["head_pointwise"],
          "parallel_launches": par_launches["head_pointwise"],
          "family_launches": family_launches["head_pointwise"],
-         "family_launch_ms": family_heads},
+         "family_launch_ms": family_heads,
+         "entry_points_launches": entry_launches["head_pointwise"],
+         "entry_points_launches_by_plan": entry_plans,
+         "entry_points_captured_launches": entry_captured["head_pointwise"]},
         {"name": "nms_suppress", "route": "cuda",
          "source": "efficientdet_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "efficientdet_tpu/ops/nms_pallas.py:34",
@@ -3058,7 +3641,9 @@ def main() -> int:
          "train_cli_eval_launches": eval_launches["nms_suppress"],
          "export_launches": export_launches["nms_suppress"],
          "parallel_launches": par_launches["nms_suppress"],
-         "family_launches": family_launches["nms_suppress"]},
+         "family_launches": family_launches["nms_suppress"],
+         "entry_points_launches": entry_launches["nms_suppress"],
+         "entry_points_captured_launches": entry_captured["nms_suppress"]},
         mbconv_row("packed", "experiments/packed_mbconv_pallas.py:201", chain_launches),
         mbconv_row("rp", "experiments/packed_mbconv_pallas.py:360", harness["rp"]),
         mbconv_row("nhwc", "experiments/mbconv_pallas.py:52", harness["nhwc"]),
@@ -3086,7 +3671,11 @@ def main() -> int:
                "family_launch_ms: the head kernel's class and box launches at each phi's rows "
                "and Cin (the streamed plan), ms the wrapper's call and device_ms the bare "
                "launch, both by CUDA events over 10, beside the bound, the plain version "
-               "and addmm + amax.",
+               "and addmm + amax. entry_points_launches: the head and NMS kernels' launches "
+               "in the entry_points phase (D4@1024, D7@1536: warm-up, capture and eager calls; "
+               "a replay ticks no counter), the head's also by plan; "
+               "entry_points_captured_launches: the launches its CUDA graphs hold (counted at "
+               "capture), which every replay runs.",
         "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,10 @@ training step's own (tests/test_torch_train.py):
 ``scale`` multiplies every tolerance but the 2 lr clause: 1 for float32,
 ``FLOAT64_SCALE`` for a step run in float64, where two ways of grouping the
 same sums agree to about 1e-12 and any larger difference is a defect.
+
+At D4 and D7 depth float32 rounding alone moves the gradients past these
+rules, in both packages: :func:`deep_step_errors` holds what float32
+resolves there against the port's float64 step.
 """
 
 from __future__ import annotations
@@ -123,6 +127,38 @@ def grad_against_exact(got_mu: Mapping[str, torch.Tensor], ref_mu: Mapping[str, 
     got, ref = grad_errors(got_mu, exact_mu), grad_errors(ref_mu, exact_mu)
     worst, leaf = max((got[k] / tol[k], k) for k in exact_mu)
     return worst / (1.0 + 2.0 * max(ref[k] / tol[k] for k in exact_mu)), leaf
+
+
+# deep_step_errors' limit on the gradient norm, relative
+DEEP_GRAD_NORM_REL = 1e-2
+
+
+def deep_step_errors(got: StepResult, exact: StepResult, lr: float) -> Dict[str, object]:
+    """A float32 step ``got`` against the port's float64 step ``exact`` on
+    the same weights and batch, where float32 rounding alone moves a deep
+    model's gradients past :func:`step_errors`' rules. At D4 and D7 (B4/B6
+    backbones, 7-8 BiFPN layers, every BN in training mode) a max-pool
+    window that holds a near-tie routes its gradient to the other pixel
+    under another rounding, and the float32 gradients of the backbone and
+    the BiFPN lie 5e-4 to 1e-1 (L2, relative) from float64, by how the sums
+    happened to round (tests/torch_entry_train.py's readings). Held: the
+    loss, its parts and the BN statistics by :func:`step_errors`' rules,
+    and the gradient norm within ``DEEP_GRAD_NORM_REL`` relative (the
+    readings lie at 3e-5 to 1.3e-3 of it; a 1% fault in the fusion nodes'
+    backward pass moves it 9-11%). Reported: ``grad_rel_l2``, the
+    gradient's L2 distance from ``exact``'s over its norm, and
+    :func:`step_errors`' per-leaf ``grad``. Each held error over its
+    tolerance (<= 1 holds)."""
+    (mg, mug, _, _), (me, mue, _, _) = got, exact
+    plain = step_errors(got, exact, lr)
+    diff = sum(float((_f64(mug[k]) - _f64(v)).norm()) ** 2 for k, v in mue.items()) ** 0.5
+    norm = sum(float(_f64(v).norm()) ** 2 for v in mue.values()) ** 0.5
+    return {"loss": plain["loss"], "bn_stats": plain["bn_stats"],
+            "grad_norm": _rel(mg["grad_norm"], me["grad_norm"], DEEP_GRAD_NORM_REL),
+            "grad_rel_l2": diff / norm, "grad": plain["grad"], "grad_worst_leaf": plain["grad_worst_leaf"]}
+
+
+DEEP_HELD = ("loss", "grad_norm", "bn_stats")
 
 
 HELD = ("loss", "grad_norm", "grad", "bn_stats", "params")

@@ -174,6 +174,32 @@ def test_the_gain_scales_the_conv_draw_only(drawn_d0):
             assert torch.equal(unit[k], v), k
 
 
+def test_calibrate_bn_moves_the_statistics_halfway():
+    """calibrate_bn: each BN's running statistics become half their drawn
+    values plus half the batch's (the biased variance of its input), the
+    momenta are restored and the model is left in eval mode; drawn_model's
+    ``calibrate`` runs it on calibration_images of its seed."""
+    model = drawn_weights.drawn_model("cpu", seed=3, image_size=128)
+    before = {k: v.clone() for k, v in model.state_dict().items() if "running_" in k}
+    seen = []
+    bn = model.backbone.stem_bn
+    hook = bn.register_forward_hook(lambda m, i, o: seen.append(i[0].detach()))
+    images = drawn_weights.calibration_images(128, 3)
+    assert images.shape == (4, 128, 128, 3) and images.dtype == torch.uint8
+    drawn_weights.calibrate_bn(model, images)
+    hook.remove()
+    assert len(seen) == 1
+    x = seen[0].double()
+    for name, batch in (("running_mean", x.mean((0, 2, 3))),
+                        ("running_var", x.var((0, 2, 3), unbiased=False))):
+        want = 0.5 * before[f"backbone.stem_bn.{name}"].double() + 0.5 * batch
+        torch.testing.assert_close(getattr(bn, name).double(), want, rtol=1e-5, atol=1e-6)
+    assert bn.momentum == 0.99 and not any(m.training for m in model.modules())
+    calibrated = drawn_weights.drawn_model("cpu", seed=3, image_size=128, calibrate=True)
+    for k, v in model.state_dict().items():
+        assert torch.equal(calibrated.state_dict()[k], v), k
+
+
 def test_float64_witness_on_the_cpu(drawn_d0, capsys):
     images = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (1, 128, 128, 3))
                               .astype(np.uint8))

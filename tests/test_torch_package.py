@@ -265,6 +265,56 @@ def test_streamed_head_plan_on_the_gpu():
 
 
 @pytest.mark.cuda
+def test_streamed_plan_inside_d4_graphs_on_the_gpu(monkeypatch):
+    """On a GPU: D4 in bf16 (drawn weights, calibrated BNs). Its anchor-major
+    pipeline captured in a CUDA graph holds the head kernel's two launches
+    on the streamed plan (Cin 224, counted at capture) and the NMS kernel,
+    and its replay equals the eager call bit for bit; the Predictor's graph
+    (its heads are convolutions, as the JAX package's) replays equal to
+    eager() bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs the entry points at full size")
+    import numpy as np
+
+    import efficientdet_tpu_torch as et
+    from efficientdet_tpu_torch.experiments.drawn_weights import drawn_model
+    from efficientdet_tpu_torch.ops import head_kernel as hk
+    from efficientdet_tpu_torch.utils.cuda_graph import GraphedCall
+
+    captured = []
+    launch = hk.launch_into
+
+    def recording(x2d, kt, bias, z, amax, num_anchors):
+        if torch.cuda.is_current_stream_capturing():
+            captured.append((x2d.shape[1], num_anchors, z.shape[2]))
+        return launch(x2d, kt, bias, z, amax, num_anchors)
+
+    monkeypatch.setattr(hk, "launch_into", recording)
+    state = drawn_model("cuda", seed=4, phi=4, gain=1.0, calibrate=True).state_dict()
+    model, cfg = et.build_efficientdet(4, num_classes=90, dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(state)
+    ec = et.EvalConfig(score_threshold=0.0)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(0, 256, (2, cfg.image_size, cfg.image_size, 3))
+                         .astype(np.uint8)).cuda()
+    graph = GraphedCall(lambda t: et.predict_pipeline(model, t, ec), x,
+                        pool=torch.cuda.graph_pool_handle())
+    assert [c[0] for c in captured] == [224, 224]
+    assert all(hk.bf16_plan(*c) == "streamed" for c in captured)
+    replay = [t.clone() for t in graph(x)]
+    with torch.inference_mode():
+        eager = et.predict_pipeline(model, x, ec)
+    assert all(torch.equal(a, b) for a, b in zip(replay, eager))
+    assert int(eager[3].min()) > 0
+    p = et.Predictor(phi=4, dtype="bf16", score_threshold=0.0, variables=state)
+    for hw in ((480, 640), (300, 200)):
+        img = rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+        got, want = p(img), p.eager(img)
+        assert len(got[1]) > 0
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_mbconv_and_floor_kernels_on_the_gpu():
     """On a GPU: the fused MBConv's three launchers and the floor kernel
     against their plain versions, small shapes (float32, TF32 off)."""

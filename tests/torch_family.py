@@ -58,16 +58,17 @@ SIZES = {1: 640, 2: 384, 3: 384, 4: 384, 5: 384, 6: 384, 7: 384}
 NUM_CLASSES = 90
 
 
-def draw_variables(shapes, rng: np.random.RandomState):
-    """numpy draws over a tree of ShapeDtypeStructs: fan-in convs, BN
-    variances and scales in [0.5, 1.5], fusion weights in [-0.3, 1.5] (some
-    switched off by the relu), every other leaf N(0, 0.2)."""
+def draw_variables(shapes, rng: np.random.RandomState, gain: float = 1.5):
+    """numpy draws over a tree of ShapeDtypeStructs: fan-in convs of
+    variance ``gain`` / fan-in, BN variances and scales in [0.5, 1.5],
+    fusion weights in [-0.3, 1.5] (some switched off by the relu), every
+    other leaf N(0, 0.2)."""
     def draw(path, s):
         name = path[-1].key
         shape = tuple(s.shape)
         if name == "kernel":
             fan_in = int(np.prod(shape[:-1]))
-            return rng.normal(0, (1.5 / fan_in) ** 0.5, shape).astype(np.float32)
+            return rng.normal(0, (gain / fan_in) ** 0.5, shape).astype(np.float32)
         if name in ("var", "scale"):
             return rng.uniform(0.5, 1.5, shape).astype(np.float32)
         if name == "fusion_weights":
