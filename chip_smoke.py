@@ -73,7 +73,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    lone requests and a full bucket equal predict_pipeline on the same
    canvases; both kernels in the profile of one bucket's replay; then a
    closed loop of C client threads calling predict_sync on 480x640 images
-   for 3 s at C = 64 with the default intra-op threads, then with one (as
+   for 2 s at C = 64 with the default intra-op threads, then with one (as
    serve.main sets it) at C = 1, 8, 32, 64, and at C = 32 with warmup()
    called over and over alongside: img/s, p50/p95/p99 ms, overloads; every
    answer equal to predict_pipeline's detections of its source at one of
@@ -87,12 +87,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    kernels' launches in one artifact call (2 and 1); the loaded program
    eager and as a CUDA graph replay against predict_pipeline on the same
    fused model (counts and classes exact, boxes 1e-3 px, scores 1e-5;
-   whether bit for bit), ms per call (median of 20) for the three and the
+   whether bit for bit), ms per call (median of 10) for the three and the
    host ms of an eager call; a fresh python3 that loads the artifact with
    model building made to raise, runs one batch and hands the detections
    back through numpy; a slim artifact exported on the CPU, loaded onto the
    card and onto the CPU (the gpu_vs_cpu rule); BatchingPredictor.
-   from_artifact closed loops of 2 s at C = 1 and 64 on 480x640 sources,
+   from_artifact closed loops of 1 s at C = 1 and 64 on 480x640 sources,
    every answer equal to predict_pipeline's detections of its source;
 12. train: the training step (train_lib.make_train_step) at D0@512, batch
    64, TrainConfig defaults, on the JAX package's tools/bench_train.py
@@ -169,7 +169,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    score threshold 0, at 1080x1920 and 300x200 sources: each shape's graph
    holds 1 NMS launch (counted at capture; its heads are convolutions, as
    the JAX Predictor's), two replays equal eager() bit for bit, ms per
-   image (median of 20) replayed and eager, capture seconds, the graph
+   image (median of 10 replays and 3 eager calls), capture seconds, the graph
    pool's MB; the anchor-major pipeline on the Predictor's model in a graph
    (2 head launches, the streamed plan in bf16 and the f32 kernel in f32 at
    Cin 224/384, and 1 NMS launch; replay equal to eager bit for bit); in
@@ -178,7 +178,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    batch 16 at D4 and 8 at D7, every bucket captured by warmup()) in
    closed loops at C = 1 and C = batch on 480x640 sources, every answer
    equal to predict_pipeline's detections of its source, img/s and
-   p50/p95 (p99 from 200 answers; each level runs 2 s and until 100
+   p50/p95 (p99 from 200 answers; each level runs 2 s and until 40
    answers came back); the .edz artifact (bf16, BN folded, batch 8)
    exported on the card, its manifest's model block, eager and replayed
    equal to predict_pipeline bit for bit, export and load seconds,
@@ -192,15 +192,40 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    against the CPU's float64 step by parallel/tolerances.deep_step_errors
    (loss, BN statistics, gradient norm); the phase's launches and the
    launches its graphs hold;
-18. int8: experiments/int8_microbench.py (the JAX script's keys: int8
+18. stages: device time by stage (efficientdet_tpu_torch/tools/
+   analyze_trace.py) in a fresh process (python3 chip_smoke.py
+   --stages-child DIR: torch.profiler with the CUDA activity alone has
+   recorded no kernel late in this script; what this process's profiler
+   sees at that point is printed first): two warm-up and three profiled eager calls (utils/profiling.
+   trace, a ProfilerStep range each) of D0@512 b128 (bf16, BN folded,
+   anchor_major, the main path), D1-D7 at FAMILY_BATCH on weights drawn at
+   FAMILY_GAIN, the D0@512 b64 f32 training step (TF32 off, phase train's
+   batch) and the D4@1024 b16 f32 remat step; each table (per stage and
+   forward/backward: ms a call, share, launches, TFLOP/s and GB/s against
+   the card's peaks, the JAX tool's verdict; by kernel family; the top
+   kernels) one JSON line, its trace under chiprun_out/stages/; every
+   device event in exactly one stage, the stages summing to the busy time
+   within 0.1%, in inference "other" under 5% of it and the head launches
+   in heads, the NMS launch in postprocess; the D0 call's kernel count the
+   same with every stage range a nullcontext;
+19. parity_drill: tools/parity_run.py on the card: archives of TF-named
+   arrays written by utils/convert.export_detector_tf_style from D0@512 and
+   D7@1536 (full width, 90 classes, weights drawn at FAMILY_GAIN with
+   calibrated BN), the drill in f32 (strict full-coverage import, sharded
+   predict at world size 1, EvalConfig.exact, the exact COCO evaluation)
+   on 16 numpy images with boxes: both kernels launched, the AP finite; a
+   truncated array fails the strict import; the card's D0 detections
+   (--save-detections) on 4 images against the CPU drill's on the same
+   archive (counts and classes exact, boxes 1e-3 px, scores 1e-5);
+20. int8: experiments/int8_microbench.py (the JAX script's keys: int8
    against bf16 for a 4096^3 product, a 3x3 and a depthwise 3x3 conv at
    (8, 224, 128, 128), two-point slopes over CUDA graphs of chained
    iterations, *_int8_error where an int8 op does not run) beside the
    card's bf16 and int8 dense peaks;
-19. stage1_packing: experiments/stage1_packing.py (the stage-1 block's four
+21. stage1_packing: experiments/stage1_packing.py (the stage-1 block's four
    formulations at batch 16, 512 px, 48 -> 24, bf16, forward and weight
    gradients; each against ref at rtol/atol 3e-2, then its ms);
-20. the kernels line, the card line, and the last line,
+22. the kernels line, the card line, and the last line,
    {"ok": true, "device": {...}}.
 
 Before each phase a line {"phase": "<name>"}; a phase's failure prints
@@ -274,7 +299,7 @@ PREDICT_STEPS = 20  # timed calls per shape, graph and eager (the median is kept
 PREDICT_THREADS = 8  # threads sharing one Predictor at two source shapes
 SERVE_BATCH = 32
 SERVE_CLIENTS = (1, 8, 32, 64)
-SERVE_SECONDS = 3.0
+SERVE_SECONDS = 2.0
 SERVE_WARMUP_CLIENTS = 32  # the closed loop with warmup() called alongside
 # training: the JAX package's tools/bench_train.py batch (64, 12 boxes an
 # image in 100 slots), 2 warm-up and 10 timed steps
@@ -1438,9 +1463,9 @@ def phase_serve(et, hk, nk, card):
 
 
 EXPORT_BATCH = SERVE_BATCH  # the serve phase's batch
-EXPORT_STEPS = 20  # timed calls of the artifact, eager and replayed, and of predict_pipeline
+EXPORT_STEPS = 10  # timed calls of the artifact, eager and replayed, and of predict_pipeline
 EXPORT_CLIENTS = (1, 64)
-EXPORT_SECONDS = 2.0
+EXPORT_SECONDS = 1.0
 
 # run by the export phase in a fresh python3: loads the artifact with the op
 # registry alone (building a model or folding BNs raises), runs one batch and
@@ -3017,16 +3042,16 @@ ENTRY_PHIS = (4, 7)
 # two of the predictor phase's five source shapes: one the model shrinks
 # with antialiasing, one it enlarges
 ENTRY_SHAPES = [(1080, 1920), (300, 200)]
-ENTRY_STEPS = 20  # timed replays a shape (the median is kept)
-ENTRY_EAGER_STEPS = 5  # timed eager calls a shape
+ENTRY_STEPS = 10  # timed replays a shape (the median is kept)
+ENTRY_EAGER_STEPS = 3  # timed eager calls a shape
 ENTRY_SERVE_BATCH = {4: 16, 7: 8}
 ENTRY_SERVE_SOURCES = 8
 ENTRY_SERVE_SECONDS = 2.0
-ENTRY_SERVE_ANSWERS = 100  # each closed-loop level runs on until this many came back
+ENTRY_SERVE_ANSWERS = 40  # each closed-loop level runs on until this many came back
 ENTRY_EXPORT_BATCH = 8
-ENTRY_EXPORT_STEPS = 5  # timed calls of the artifact, replayed and eager, and of predict_pipeline
+ENTRY_EXPORT_STEPS = 3  # timed calls of the artifact, replayed and eager, and of predict_pipeline
 ENTRY_SHARDED_BATCH = 8
-ENTRY_SHARDED_STEPS = 5
+ENTRY_SHARDED_STEPS = 3
 # the training step: tests/torch_entry_train.py's reduced configs and draws
 ENTRY_TRAIN_SIZE = 256
 ENTRY_TRAIN_WIDTH = 64
@@ -3532,6 +3557,341 @@ def phase_entry_points(et, hk, nk, card):
     return launches, captured, by_plan
 
 
+STAGE_WARMUP = 2  # eager calls before the profiled ones
+STAGE_CALLS = 3  # profiled eager calls of each configuration
+STAGE_DIR = os.path.join(ROOT, "chiprun_out", "stages")  # the traces (gitignored)
+STAGE_TIMEOUT = 900  # seconds the child may take
+STAGE_SUM_TOL = 1e-3  # the stages against the busy time
+STAGE_OTHER_SHARE = 0.05  # at most this share of an inference call's busy time outside the stages
+STAGE_TOP = 8
+
+
+def _stage_table(label, call, out_dir, name, inference, card):
+    """STAGE_WARMUP eager calls of ``call()``, then STAGE_CALLS under
+    utils.profiling.trace (a ProfilerStep range each), the trace written
+    to out_dir/name and analysed by tools/analyze_trace.py, the table
+    printed and appended to out_dir/tables.jsonl; the table's checks
+    raise. Returns the analysis."""
+    import torch
+
+    from efficientdet_tpu_torch.tools.analyze_trace import analyze
+    from efficientdet_tpu_torch.utils import profiling
+
+    for _ in range(STAGE_WARMUP):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiling.trace(out_dir, name=name) as prof:
+        for _ in range(STAGE_CALLS):
+            call()
+            prof.step()
+    profiled_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = analyze(os.path.join(out_dir, name), top=STAGE_TOP)
+    analyse_s = time.perf_counter() - t0
+    rows = r["stages"]
+    faults = []
+    if r["mode"] != "device" or not r["events"]:
+        faults.append(f"the trace holds no device event (mode {r['mode']})")
+    if r["n_steps"] != STAGE_CALLS:
+        faults.append(f"{r['n_steps']} calls in the trace, not {STAGE_CALLS}")
+    if r["assigned"] != r["events"]:
+        faults.append(f"{r['events']} device events, {r['assigned']} in a stage")
+    staged = sum(v["ms_per_step"] for v in rows.values())
+    if abs(staged - r["busy_ms_per_step"]) > STAGE_SUM_TOL * r["busy_ms_per_step"]:
+        faults.append(f"the stages sum to {staged} ms, busy {r['busy_ms_per_step']} ms")
+    other = sum(v["ms_per_step"] for k, v in rows.items() if k.startswith("other"))
+    port = r["port_kernels"]
+    heads = {row: n for k, v in port.items() if k.startswith("head_pw") for row, n in v.items()}
+    nms = port.get("nms_suppress_kernel", {})
+    if inference:
+        if other >= STAGE_OTHER_SHARE * r["busy_ms_per_step"]:
+            faults.append(f"other {other} ms of {r['busy_ms_per_step']} busy")
+        if heads != {"heads": 2.0} or nms != {"postprocess": 1.0}:
+            faults.append(f"the kernels a call: head {heads}, NMS {nms}")
+    elif heads or nms:
+        faults.append(f"a training step launched the port's kernels: {port}")
+    keys = ("ms_per_step", "share", "launches", "tflops", "pct_peak", "gbps", "pct_hbm", "verdict")
+    rec = {"phase": "stages", "model": label,
+          "stages": {k: {key: v[key] for key in keys} for k, v in rows.items()},
+          "busy_ms": r["busy_ms_per_step"], "stages_ms": staged, "call_ms": r["step_ms"],
+          "events_a_call": r["events"] / r["n_steps"], "other_ms": other,
+          "families": {k: v["ms_per_step"] for k, v in r["families"].items()},
+          "port_kernels": port, "top": r["top"], "trace": os.path.relpath(r["trace"], ROOT),
+          "trace_mb": os.path.getsize(r["trace"]) / 1e6, "profiled_s": profiled_s,
+          "analyse_s": analyse_s, "checks": "ok" if not faults else faults, "card": card}
+    emit(rec)
+    with open(os.path.join(out_dir, "tables.jsonl"), "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    if faults:
+        raise AssertionError(f"stages {label}: {faults}")
+    return r
+
+
+def _device_events(path):
+    from efficientdet_tpu_torch.tools.analyze_trace import DEVICE_CATS, load_events
+
+    return sum(e.get("ph") == "X" and e.get("cat") in DEVICE_CATS for e in load_events(path))
+
+
+def stages_child(out_dir):
+    """Phase stages' fresh process: the stage tables of the main path
+    (D0@512 b128), D1-D7 at FAMILY_BATCH and the two training steps; the
+    D0 call's kernel count with the stage ranges off; the kernels' launches
+    into out_dir/launches.json."""
+    import torch
+
+    import efficientdet_tpu_torch as et
+    import efficientdet_tpu_torch.ops.head_kernel as hk
+    import efficientdet_tpu_torch.ops.nms_kernel as nk
+    from efficientdet_tpu_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    kernels = {"head_pointwise": hk.head_pointwise_anchor_major,
+               "nms_suppress": nk.suppression_keep_mask}
+    for k in kernels.values():
+        k.launches = 0
+
+    def inference(phi, drawn=False):
+        if not drawn:  # the main path's random weights
+            model, cfg = et.build_efficientdet(phi, num_classes=90, dtype=torch.bfloat16,
+                                               seed=phi, device=DEVICE)
+        else:  # drawn_model's weights, drawn into the model once
+            cfg = et.ModelConfig.for_phi(phi, num_classes=90)
+            model = et.EfficientDet(cfg, torch.bfloat16)
+            model.load_state_dict(drawn_state_dict(model, seed=phi, gain=FAMILY_GAIN))
+            model = model.to(DEVICE).eval()
+        model = et.fuse_for_inference(model)
+        batch = BENCH_BATCH if phi == 0 else FAMILY_BATCH[phi]
+        gen = torch.Generator(device=DEVICE).manual_seed(phi)
+        images = torch.randint(0, 256, (batch, cfg.image_size, cfg.image_size, 3), generator=gen,
+                               device=DEVICE, dtype=torch.uint8)
+        predict = et.make_predict_fn(model)
+        label = (f"D{phi}@{cfg.image_size} b{batch}, 90 classes, bf16, BN folded, anchor_major"
+                 + (", weights drawn at FAMILY_GAIN" if drawn else ""))
+        return label, lambda: predict(images), batch
+
+    label, call, _ = inference(0)
+    _stage_table(label, call, out_dir, "d0_b128.json.gz", True, card)
+    # the same call with every stage range a nullcontext: as many kernels
+    with_ranges = _device_events(os.path.join(out_dir, "d0_b128.json.gz")) / STAGE_CALLS
+    with profiling.stages_off():
+        with profiling.trace(out_dir, name="d0_b128_no_ranges.json.gz") as prof:
+            call()
+            prof.step()
+    without = _device_events(os.path.join(out_dir, "d0_b128_no_ranges.json.gz"))
+    emit({"phase": "stages", "d0_kernels_a_call": {"ranges": with_ranges, "nullcontext": without}})
+    if with_ranges != without:
+        raise AssertionError(f"the stage ranges changed the D0 call's kernels: {with_ranges} "
+                             f"against {without}")
+    del call
+    torch.cuda.empty_cache()
+
+    for phi in sorted(FAMILY_BATCH):
+        label, call, batch = inference(phi, drawn=True)
+        _stage_table(label, call, out_dir, f"d{phi}_b{batch}.json.gz", True, card)
+        del call
+        torch.cuda.empty_cache()
+
+    for phi, size, batch, remat in ((0, TRAIN_SIZE, TRAIN_BATCH, False),
+                                    (FAMILY_TRAIN_PHI, FAMILY_TRAIN_SIZE, FAMILY_TRAIN_BATCH, True)):
+        host = _bench_train_batch(size, batch)
+        data = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+        model, _ = et.build_efficientdet(phi, num_classes=90, seed=0, remat=remat, image_size=size,
+                                         device=DEVICE)
+        tc = et.TrainConfig(batch_size=batch, max_gt_boxes=TRAIN_MAX_GT)
+        box = {"state": et.create_train_state(model, tc)}
+        step = et.make_train_step(model, tc)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+
+        def call():
+            box["state"], _ = step(box["state"], data, gen)
+
+        name = f"train_d{phi}_b{batch}" + ("_remat" if remat else "")
+        _stage_table(f"training step D{phi}@{size} b{batch}, f32 (TF32 off)"
+                     + (", remat" if remat else ""), call, out_dir, f"{name}.json.gz", False, card)
+        del model, box, step, data
+        torch.cuda.empty_cache()
+
+    launches = {name: k.launches for name, k in kernels.items()}
+    with open(os.path.join(out_dir, "launches.json"), "w") as f:
+        json.dump(launches, f)
+    return 0
+
+
+def phase_stages(et, card):
+    """Device time by stage (tools/analyze_trace.py) in a fresh process
+    (stages_child): torch.profiler with the CUDA activity alone has
+    recorded no kernel late in this script.
+    Returns the child's head and NMS launches."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    # what this process's profiler sees now, for the record (PERF.md: the
+    # late-script silence)
+    model, cfg = et.build_efficientdet(0, num_classes=90, dtype=torch.bfloat16, seed=0)
+    images = torch.zeros((2, cfg.image_size, cfg.image_size, 3), dtype=torch.uint8, device=DEVICE)
+    predict = et.make_predict_fn(et.fuse_for_inference(model))
+    predict(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        predict(images)
+        torch.cuda.synchronize()
+    seen = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    # and with the CUDA activity alone, as kernel_ms profiles
+    cuda_alone = kernel_ms(lambda: predict(images), calls=1)
+    emit({"phase": "stages", "in_process_profiler": {
+        "device_events": seen,
+        "cpu_events": sum(1 for e in prof.events() if e.device_type.name == "CPU"),
+        "cuda_activity_alone_kernels": len(cuda_alone),
+        "cuda_activity_alone_ms": sum(cuda_alone.values()),
+        "supported_activities": sorted(str(a) for a in torch.profiler.supported_activities())}})
+    del model, predict, images, prof
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(STAGE_DIR, ignore_errors=True)
+    os.makedirs(STAGE_DIR)
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--stages-child", STAGE_DIR],
+                          cwd=ROOT, timeout=STAGE_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"the stages child exited with {proc.returncode}")
+    with open(os.path.join(STAGE_DIR, "launches.json")) as f:
+        launches = json.load(f)
+    sizes = {n: os.path.getsize(os.path.join(STAGE_DIR, n)) / 1e6 for n in os.listdir(STAGE_DIR)}
+    emit({"phase": "stages", "launches": launches, "trace_mb": sizes,
+          "seconds": time.perf_counter() - t0, "card": card})
+    return launches
+
+
+DRILL_PHIS = (0, 7)
+DRILL_IMAGES = 16
+DRILL_CPU_IMAGES = 4  # the card's D0 detections against the CPU drill's on these
+DRILL_BATCH = 8
+
+
+def _drill_args(weights, phi, *extra):
+    from efficientdet_tpu_torch.tools import parity_run
+
+    return parity_run.parse_args(["--weights", weights, "--coco-path", "unused", "--phi", str(phi),
+                                  "--batch-size", str(DRILL_BATCH), "--dtype", "f32", *extra])
+
+
+def _detections_by_image(path, n):
+    """A saved COCO results file as each of the first ``n`` images' (boxes
+    xyxy, scores, classes), by falling score."""
+    with open(path) as f:
+        results = json.load(f)
+    out = []
+    for i in range(n):
+        rows = sorted((r for r in results if r["image_id"] == i), key=lambda r: -r["score"])
+        boxes = np.array([[x, y, x + w, y + h] for x, y, w, h in (r["bbox"] for r in rows)],
+                         np.float64).reshape(-1, 4)
+        out.append((boxes, np.array([r["score"] for r in rows]),
+                    np.array([r["category_id"] for r in rows])))
+    return out
+
+
+def phase_parity_drill(et, hk, nk, card):
+    """tools/parity_run.py on the card: archives of TF-named arrays written
+    by utils/convert.export_detector_tf_style from D0@512 and D7@1536 (full
+    width, 90 classes, weights drawn at FAMILY_GAIN with calibrated BN), the
+    drill in f32 through sharded predict (world size 1), both kernels and
+    the exact COCO evaluation on DRILL_IMAGES numpy images with boxes; a
+    truncated array fails the strict import; the card's D0 detections on
+    DRILL_CPU_IMAGES images against the CPU drill's (the Predictor rule).
+    Returns the phase's head and NMS launches."""
+    import tempfile
+
+    import torch
+
+    from efficientdet_tpu_torch.tools import parity_run
+    from efficientdet_tpu_torch.utils.convert import export_detector_tf_style
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    kernels = {"head_pointwise": hk.head_pointwise_anchor_major,
+               "nms_suppress": nk.suppression_keep_mask}
+    launches = {name: 0 for name in kernels}
+    ds = _smoke_dataset(et, n=DRILL_IMAGES, seed=5)
+    with tempfile.TemporaryDirectory(prefix="parity_drill_") as tmp:
+        archives = {}
+        for phi in DRILL_PHIS:
+            t0 = time.perf_counter()
+            drawn = drawn_model(DEVICE, seed=phi, phi=phi, gain=FAMILY_GAIN, calibrate=True)
+            tf_vars = export_detector_tf_style(drawn, drawn.config)
+            del drawn
+            archives[phi] = os.path.join(tmp, f"d{phi}.npz")
+            np.savez(archives[phi], **tf_vars)
+            export_s = time.perf_counter() - t0
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            result = parity_run.run(_drill_args(archives[phi], phi), dataset=ds)
+            torch.cuda.synchronize()
+            drill_s = time.perf_counter() - t0
+            got = {name: k.launches for name, k in kernels.items()}
+            for name, n in got.items():
+                launches[name] += n
+            rec = result["record"]
+            del result
+            torch.cuda.empty_cache()
+            batches = -(-DRILL_IMAGES // DRILL_BATCH)
+            emit({"phase": "parity_drill", "phi": phi, "variables": len(tf_vars),
+                  "archive_mb": os.path.getsize(archives[phi]) / 1e6, "parity": rec,
+                  "launches": got, "export_s": export_s, "drill_s": drill_s, "card": card})
+            if got != {"head_pointwise": 2 * batches, "nms_suppress": batches}:
+                raise AssertionError(f"parity_drill D{phi}: kernel launches {got} over {batches} "
+                                     "batches")
+            if not np.isfinite(rec["AP"]) or rec["images"] != DRILL_IMAGES:
+                raise AssertionError(f"parity_drill D{phi}: {rec}")
+            del tf_vars
+
+        # a truncated array fails the strict import
+        with np.load(archives[0]) as z:
+            bad = {k: z[k] for k in z.files}
+        first = sorted(bad)[0]
+        bad[first] = bad[first].reshape(-1)[:max(bad[first].size - 1, 1)]
+        bad_path = os.path.join(tmp, "bad.npz")
+        np.savez(bad_path, **bad)
+        try:
+            parity_run.run(_drill_args(bad_path, 0), dataset=ds)
+        except ValueError as e:
+            refused = str(e)[:200]
+        else:
+            raise AssertionError("parity_drill: the truncated archive was imported")
+
+        # the card's D0 detections against the CPU drill's, the Predictor rule
+        dets = {}
+        for device in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"dets_{device}.json")
+            k0 = {name: k.launches for name, k in kernels.items()}
+            parity_run.run(_drill_args(archives[0], 0, "--device", device, "--max-images",
+                                       str(DRILL_CPU_IMAGES), "--save-detections", path),
+                           dataset=ds)
+            for name, k in kernels.items():
+                launches[name] += k.launches - k0[name]
+            dets[device] = _detections_by_image(path, DRILL_CPU_IMAGES)
+        faults = [detection_mismatch(g, w, 1e-3, 1e-5) for g, w in zip(dets["cuda"], dets["cpu"])]
+        counts = [len(d[1]) for d in dets["cuda"]]
+        box = max(float(np.abs(g[0] - w[0]).max()) for g, w in zip(dets["cuda"], dets["cpu"]))
+        score = max(float(np.abs(g[1] - w[1]).max()) for g, w in zip(dets["cuda"], dets["cpu"]))
+    emit({"phase": "parity_drill", "truncated_archive": refused,
+          "card_vs_cpu_d0": {"images": DRILL_CPU_IMAGES, "detections": counts,
+                             "max_box_px_in_order": box, "max_score_in_order": score,
+                             "faults": faults},
+          "launches": launches, "seconds": time.perf_counter() - t_phase, "card": card})
+    if any(faults):
+        raise AssertionError(f"parity_drill: the card's D0 detections differ from the CPU's: {faults}")
+    return launches
+
+
 def run_phase(name, fn, *args):
     """``{"phase": name}`` on stdout, then ``fn(*args)``; a failure's
     traceback goes to stdout too (with the phase named above it) and the
@@ -3550,6 +3910,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-dir", default=None,
                         help="profile three batch-128 calls; write their trace here")
+    parser.add_argument("--stages-child", default=None, metavar="DIR",
+                        help=argparse.SUPPRESS)  # phase stages' fresh process
     args = parser.parse_args()
 
     import torch
@@ -3558,6 +3920,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if args.stages_child:
+        return stages_child(args.stages_child)
     import efficientdet_tpu_torch as et
     import efficientdet_tpu_torch.ops.head_kernel as hk
     import efficientdet_tpu_torch.ops.nms as tn
@@ -3596,6 +3960,9 @@ def main() -> int:
                                               ms_per_call)
     entry_launches, entry_captured, entry_plans = run_phase("entry_points", phase_entry_points, et,
                                                             hk, nk, card)
+    torch.cuda.empty_cache()
+    stage_launches = run_phase("stages", phase_stages, et, card)
+    drill_launches = run_phase("parity_drill", phase_parity_drill, et, hk, nk, card)
     run_phase("int8", phase_int8, card)
     run_phase("stage1_packing", phase_stage1, card)
 
@@ -3615,7 +3982,8 @@ def main() -> int:
                 "library_ms": None, "device_ms": tot("device_ms"),
                 "module_ms": sum(b["module_ms"] for b in mb_blocks),
                 "train_cli_eval_launches": eval_launches[f"fused_mbconv_{layout}"],
-                "parallel_launches": par_launches[f"fused_mbconv_{layout}"], "family_launches": 0}
+                "parallel_launches": par_launches[f"fused_mbconv_{layout}"], "family_launches": 0,
+                "stages_launches": 0, "parity_drill_launches": 0}
 
     emit({"kernels": [
         {"name": "head_pointwise", "route": "cuda",
@@ -3631,7 +3999,9 @@ def main() -> int:
          "family_launch_ms": family_heads,
          "entry_points_launches": entry_launches["head_pointwise"],
          "entry_points_launches_by_plan": entry_plans,
-         "entry_points_captured_launches": entry_captured["head_pointwise"]},
+         "entry_points_captured_launches": entry_captured["head_pointwise"],
+         "stages_launches": stage_launches["head_pointwise"],
+         "parity_drill_launches": drill_launches["head_pointwise"]},
         {"name": "nms_suppress", "route": "cuda",
          "source": "efficientdet_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "efficientdet_tpu/ops/nms_pallas.py:34",
@@ -3643,7 +4013,9 @@ def main() -> int:
          "parallel_launches": par_launches["nms_suppress"],
          "family_launches": family_launches["nms_suppress"],
          "entry_points_launches": entry_launches["nms_suppress"],
-         "entry_points_captured_launches": entry_captured["nms_suppress"]},
+         "entry_points_captured_launches": entry_captured["nms_suppress"],
+         "stages_launches": stage_launches["nms_suppress"],
+         "parity_drill_launches": drill_launches["nms_suppress"]},
         mbconv_row("packed", "experiments/packed_mbconv_pallas.py:201", chain_launches),
         mbconv_row("rp", "experiments/packed_mbconv_pallas.py:360", harness["rp"]),
         mbconv_row("nhwc", "experiments/mbconv_pallas.py:52", harness["nhwc"]),
@@ -3652,7 +4024,8 @@ def main() -> int:
          "max_abs_err": floor_err, "ms": floor["kernel_ms"], "plain_ms": floor_plain,
          "bound_ms": floor["bound_ms"], "bound_by": floor["bound_by"], "library_ms": None,
          "device_ms": floor["device_ms"], "train_cli_eval_launches": eval_launches["tap_floor"],
-         "parallel_launches": par_launches["tap_floor"], "family_launches": 0},
+         "parallel_launches": par_launches["tap_floor"], "family_launches": 0,
+         "stages_launches": 0, "parity_drill_launches": 0},
     ], "note": "head_pointwise, nms_suppress: ms per main-path call at batch 128 (head: the "
                "class and the box launch together), the wrapper's call by CUDA events; "
                "device_ms the kernels alone, by torch.profiler; launches over 3 pipeline calls. "
@@ -3675,7 +4048,11 @@ def main() -> int:
                "in the entry_points phase (D4@1024, D7@1536: warm-up, capture and eager calls; "
                "a replay ticks no counter), the head's also by plan; "
                "entry_points_captured_launches: the launches its CUDA graphs hold (counted at "
-               "capture), which every replay runs.",
+               "capture), which every replay runs. stages_launches: the head and NMS kernels' "
+               "launches in the stages phase's fresh process (D0@512 b128 and D1-D7 at "
+               "FAMILY_BATCH, warm-up and profiled eager calls; the training steps launch none). "
+               "parity_drill_launches: their launches in the parity_drill phase (the drill at "
+               "D0@512 and D7@1536 on 16 images, and at D0 on 4 for the card-CPU check).",
         "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -95,6 +95,7 @@ def export_predict(model, batch_size: int, *, eval_config=None, preprocess: bool
     """
     from .configs import EvalConfig
     from .models.detector import fuse_for_inference
+    from .utils.profiling import stages_off
 
     if eval_config is None:
         eval_config = EvalConfig()
@@ -110,7 +111,9 @@ def export_predict(model, batch_size: int, *, eval_config=None, preprocess: bool
     img_dtype = torch.uint8 if preprocess else model.dtype
     images = torch.zeros((batch_size, size, size, 3), dtype=img_dtype, device=device)
     program = _Program(_Pipeline(model, eval_config, preprocess))
-    with torch.no_grad():
+    # no stage ranges: a torch version whose non-strict export keeps
+    # record_function would put profiler ops into the program
+    with torch.no_grad(), stages_off():
         exported = torch.export.export(program, (weights, images), strict=False)
     # the example inputs would store a second copy of the weights in the .pt2
     exported.example_inputs = None

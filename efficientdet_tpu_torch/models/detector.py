@@ -33,6 +33,7 @@ from ..ops.nms import (
     batched_filter_from_logits,
 )
 from ..ops.preprocess import preprocess_batch_fixed
+from ..utils.profiling import stage
 from .bifpn import BiFPN
 from .conv import Conv2d
 from .efficientnet import EfficientNet
@@ -115,8 +116,11 @@ class EfficientDet(nn.Module):
 
     def features(self, images: torch.Tensor, generator: torch.Generator | None = None):
         """(B, S, S, 3) normalised -> BiFPN outputs [P3..P7], NCHW."""
-        x = images.to(self.dtype).permute(0, 3, 1, 2)
-        return self.bifpn(list(self.backbone(x, generator)))
+        with stage("backbone"):
+            x = images.to(self.dtype).permute(0, 3, 1, 2)
+            taps = list(self.backbone(x, generator))
+        with stage("bifpn"):
+            return self.bifpn(taps)
 
     def forward(self, images: torch.Tensor, anchor_major: bool = False,
                 raw_levels: bool = False, generator: torch.Generator | None = None):
@@ -132,8 +136,9 @@ class EfficientDet(nn.Module):
         and (B, Hl, Wl, A*4) deltas, the input of the pixel-gather front end.
         """
         feats = self.features(images, generator)
-        return (self.class_net(feats, anchor_major, raw_levels),
-                self.box_net(feats, anchor_major, raw_levels))
+        with stage("heads"):
+            return (self.class_net(feats, anchor_major, raw_levels),
+                    self.box_net(feats, anchor_major, raw_levels))
 
 
 @torch.no_grad()
@@ -241,22 +246,26 @@ def predict_pipeline(
     if images.device != device:
         raise ValueError(f"images are on {images.device}, the model on {device}")
     if preprocess:
-        images = preprocess_batch_fixed(images, dtype=model.dtype)
+        with stage("preprocess"):
+            images = preprocess_batch_fixed(images, dtype=model.dtype)
     anchors = model.anchors(size, device)
     if front_end == "anchor_major":
         cls_out, box_out = model(images, anchor_major=True)
-        return batched_filter_from_anchor_major_levels(
-            anchors, box_out, cls_out, (size, size), eval_config
-        )
+        with stage("postprocess"):
+            return batched_filter_from_anchor_major_levels(
+                anchors, box_out, cls_out, (size, size), eval_config
+            )
     if front_end == "pixel_gather":
         cls_levels, box_levels = model(images, raw_levels=True)
-        return batched_filter_from_level_logits(
-            anchors, box_levels, cls_levels, (size, size), eval_config
-        )
+        with stage("postprocess"):
+            return batched_filter_from_level_logits(
+                anchors, box_levels, cls_levels, (size, size), eval_config
+            )
     cls_logits, box_deltas = model(images)
-    return batched_filter_from_logits(
-        anchors, box_deltas, cls_logits, (size, size), eval_config
-    )
+    with stage("postprocess"):
+        return batched_filter_from_logits(
+            anchors, box_deltas, cls_logits, (size, size), eval_config
+        )
 
 
 def make_predict_fn(

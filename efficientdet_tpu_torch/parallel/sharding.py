@@ -189,6 +189,7 @@ def make_spatial_predict_fn(model, mesh: Mesh, eval_config=None, preprocess: boo
     from ..models.detector import make_predict_fn
     from ..ops.nms import batched_filter_from_anchor_major_levels
     from ..ops.preprocess import preprocess_batch_fixed
+    from ..utils.profiling import stage
     from .spatial import gather_anchor_major
 
     eval_config = eval_config or EvalConfig()
@@ -208,12 +209,14 @@ def make_spatial_predict_fn(model, mesh: Mesh, eval_config=None, preprocess: boo
         lo, hi = ctx.layout.band(1)
         x = images[:, lo:hi].to(device)
         if preprocess:
-            x = preprocess_batch_fixed(x, dtype=model.dtype)
+            with stage("preprocess"):
+                x = preprocess_batch_fixed(x, dtype=model.dtype)
         with parallel_context(ctx):
             cls_out, box_out = model(x, anchor_major=True)
         cls_out, box_out = gather_anchor_major(cls_out, box_out, ctx, bsz,
                                                model.config.anchor.strides)
-        return batched_filter_from_anchor_major_levels(
-            model.anchors(size, device), box_out, cls_out, (size, size), eval_config)
+        with stage("postprocess"):
+            return batched_filter_from_anchor_major_levels(
+                model.anchors(size, device), box_out, cls_out, (size, size), eval_config)
 
     return predict

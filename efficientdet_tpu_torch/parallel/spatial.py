@@ -23,6 +23,7 @@ import torch
 
 from ..anchors import anchor_targets_batch_compact
 from ..losses import detection_loss_from_levels
+from ..utils.profiling import stage
 from . import collectives as C
 from .context import ParallelContext
 from .mesh import split_rows
@@ -35,36 +36,38 @@ def band_loss(model, config, images: torch.Tensor, boxes, labels, generator,
     the rank's band of rows."""
     lay = ctx.layout
     anchors = model.anchors(images.shape[1], images.device)
-    cls_t, box_t, state_t = anchor_targets_batch_compact(
-        anchors, boxes, labels, config.positive_iou, config.negative_iou)
-    positive = (state_t == 1.0).float()
-    normalizer = positive.sum().clamp_min(1.0)
+    with stage("loss"):
+        cls_t, box_t, state_t = anchor_targets_batch_compact(
+            anchors, boxes, labels, config.positive_iou, config.negative_iou)
+        positive = (state_t == 1.0).float()
+        normalizer = positive.sum().clamp_min(1.0)
     lo, hi = lay.band(1)
     cls_levels, box_levels = model(images[:, lo:hi], raw_levels=True, generator=generator)
-    a = model.config.num_anchors_per_cell
-    cls_mine, box_mine, ids = [], [], []
-    off = 0
-    for cl, bl in zip(cls_levels, box_levels):
-        w = cl.shape[2]
-        stride = lay.size // w
-        rows = lay.rows(stride)
-        if lay.banded(stride):
-            r0, r1 = lay.band(stride)
-            cls_mine.append(cl)
-            box_mine.append(bl)
-        else:
-            r0, r1 = split_rows(rows, ctx.world)[ctx.rank]
-            cls_mine.append(cl[:, r0:r1])
-            box_mine.append(bl[:, r0:r1])
-        ids.append(torch.arange(off + r0 * w * a, off + r1 * w * a, device=images.device))
-        off += rows * w * a
-    ids = torch.cat(ids)
-    total, aux = detection_loss_from_levels(
-        cls_mine, box_mine, cls_t[:, ids], box_t[:, ids], state_t[:, ids], num_anchors=a,
-        alpha=config.focal_alpha, gamma=config.focal_gamma, sigma=config.huber_sigma,
-        normalizer=normalizer)
-    aux["num_positives"] = positive.sum(dim=1).mean()
-    return total, aux
+    with stage("loss"):
+        a = model.config.num_anchors_per_cell
+        cls_mine, box_mine, ids = [], [], []
+        off = 0
+        for cl, bl in zip(cls_levels, box_levels):
+            w = cl.shape[2]
+            stride = lay.size // w
+            rows = lay.rows(stride)
+            if lay.banded(stride):
+                r0, r1 = lay.band(stride)
+                cls_mine.append(cl)
+                box_mine.append(bl)
+            else:
+                r0, r1 = split_rows(rows, ctx.world)[ctx.rank]
+                cls_mine.append(cl[:, r0:r1])
+                box_mine.append(bl[:, r0:r1])
+            ids.append(torch.arange(off + r0 * w * a, off + r1 * w * a, device=images.device))
+            off += rows * w * a
+        ids = torch.cat(ids)
+        total, aux = detection_loss_from_levels(
+            cls_mine, box_mine, cls_t[:, ids], box_t[:, ids], state_t[:, ids], num_anchors=a,
+            alpha=config.focal_alpha, gamma=config.focal_gamma, sigma=config.huber_sigma,
+            normalizer=normalizer)
+        aux["num_positives"] = positive.sum(dim=1).mean()
+        return total, aux
 
 
 def gather_anchor_major(cls_out, box_out, ctx: ParallelContext, batch: int, strides):

@@ -44,6 +44,7 @@ from .ops.nms import filter_detections_from_logits
 from .ops.preprocess import preprocess_image
 from .utils.checkpoint import CheckpointManager, load_params
 from .utils.cuda_graph import GraphedCall
+from .utils.profiling import stage
 
 MAX_CACHED_SHAPES = 8  # the JAX package's bound on its per-shape program cache
 
@@ -114,19 +115,21 @@ class Predictor:
         (D, 4), scores (D,), classes (D,), num_valid ()), padded."""
         size = self.config.image_size
         ec = self.eval_config
-        x, scale = preprocess_image(image, size, dtype=self.model.dtype)
+        with stage("preprocess"):
+            x, scale = preprocess_image(image, size, dtype=self.model.dtype)
         cls_logits, box_deltas = self.model(x[None])
-        b, s, c, n = filter_detections_from_logits(
-            self.model.anchors(size, self.device),
-            box_deltas[0],
-            cls_logits[0],
-            (size, size),
-            ec.score_threshold,
-            ec.nms_iou_threshold,
-            ec.max_detections,
-            ec.pre_nms_top_k,
-        )
-        return b / scale, s, c, n
+        with stage("postprocess"):
+            b, s, c, n = filter_detections_from_logits(
+                self.model.anchors(size, self.device),
+                box_deltas[0],
+                cls_logits[0],
+                (size, size),
+                ec.score_threshold,
+                ec.nms_iou_threshold,
+                ec.max_detections,
+                ec.pre_nms_top_k,
+            )
+            return b / scale, s, c, n
 
     def _compiled(self, h: int, w: int):
         """The runner for source shape (h, w): its CUDA graph on the card,

@@ -43,6 +43,7 @@ from .models.detector import EfficientDet, resolve_device
 from .ops.augment import augment_batch_device
 from .ops.preprocess import preprocess_batch_fixed
 from .parallel.context import parallel_context
+from .utils.profiling import stage
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 Tensors = Dict[str, torch.Tensor]
@@ -228,18 +229,21 @@ def _loss(model: EfficientDet, config: TrainConfig, images, boxes, labels, gener
     count when None)."""
     cfg = model.config
     anchors = model.anchors(images.shape[1], images.device)
-    cls_t, box_t, state_t = anchor_targets_batch_compact(
-        anchors, boxes, labels, config.positive_iou, config.negative_iou)
+    with stage("loss"):
+        cls_t, box_t, state_t = anchor_targets_batch_compact(
+            anchors, boxes, labels, config.positive_iou, config.negative_iou)
     kw = dict(alpha=config.focal_alpha, gamma=config.focal_gamma, sigma=config.huber_sigma,
               normalizer=None if normalize is None else normalize(state_t))
     if config.per_level_loss:
         cls_levels, box_levels = model(images, raw_levels=True, generator=generator)
-        total, aux = detection_loss_from_levels(
-            cls_levels, box_levels, cls_t, box_t, state_t,
-            num_anchors=cfg.num_anchors_per_cell, **kw)
+        with stage("loss"):
+            total, aux = detection_loss_from_levels(
+                cls_levels, box_levels, cls_t, box_t, state_t,
+                num_anchors=cfg.num_anchors_per_cell, **kw)
     else:
         cls_logits, box_preds = model(images, generator=generator)
-        total, aux = detection_loss(cls_logits, box_preds, cls_t, box_t, state_t, **kw)
+        with stage("loss"):
+            total, aux = detection_loss(cls_logits, box_preds, cls_t, box_t, state_t, **kw)
     return total, aux, state_t
 
 
@@ -307,16 +311,17 @@ def make_train_step(model: EfficientDet, config: TrainConfig, device=None, paral
         params = [state.params[k] for k in names]
         ctx = None if parallel is None else parallel.context_for(images)
         with parallel_context(ctx):
-            if config.device_augment:
-                extents = batch.get("extents")
-                images, boxes, labels = augment_batch_device(
-                    generator, images, boxes, labels,
-                    extents=None if extents is None else torch.as_tensor(extents, device=dev),
-                    color=config.device_augment_color,
-                    draw_rows=None if ctx is None else ctx.draw_rows(images.shape[0]))
-            # the augmenter returns float32 in [0, 255]: normalised here too
-            if images.dtype != torch.float32 or config.device_augment:
-                images = preprocess_batch_fixed(images, dtype=torch.float32)
+            with stage("preprocess"):
+                if config.device_augment:
+                    extents = batch.get("extents")
+                    images, boxes, labels = augment_batch_device(
+                        generator, images, boxes, labels,
+                        extents=None if extents is None else torch.as_tensor(extents, device=dev),
+                        color=config.device_augment_color,
+                        draw_rows=None if ctx is None else ctx.draw_rows(images.shape[0]))
+                # the augmenter returns float32 in [0, 255]: normalised here too
+                if images.dtype != torch.float32 or config.device_augment:
+                    images = preprocess_batch_fixed(images, dtype=torch.float32)
             if parallel is None:
                 total, aux, anchor_state = _loss(model, config, images, boxes, labels, generator)
                 aux["num_positives"] = (anchor_state == 1.0).sum(dim=1).float().mean()
@@ -329,10 +334,10 @@ def make_train_step(model: EfficientDet, config: TrainConfig, device=None, paral
         grads = dict(zip(names, grad_list))
         for k in frozen:
             grads[k] = torch.zeros_like(grads[k])
-        grad_norm = global_norm(list(grads.values()))
-        updates, opt_state = tx.update(grads, state.opt_state, state.params, grad_norm)
-        upd = [updates[k] for k in names]
-        with torch.no_grad():
+        with stage("optimizer"), torch.no_grad():
+            grad_norm = global_norm(list(grads.values()))
+            updates, opt_state = tx.update(grads, state.opt_state, state.params, grad_norm)
+            upd = [updates[k] for k in names]
             if state.lr_scale != 1.0:
                 upd = torch._foreach_mul(upd, state.lr_scale)
             torch._foreach_add_(params, upd)

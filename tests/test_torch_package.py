@@ -18,9 +18,11 @@ import efficientdet_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "efficientdet_tpu_torch")
-# the top-level experiments/ package is the JAX package's; the port's own
-# efficientdet_tpu_torch.experiments (relative imports too) is allowed
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "efficientdet_tpu", "experiments")
+# the top-level experiments/ and tools/ are the JAX package's (tools/ is also
+# imported by its bare module names); the port's own
+# efficientdet_tpu_torch.experiments and .tools (relative imports too) are allowed
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "efficientdet_tpu", "experiments",
+             "tools", "analyze_trace", "parity_run")
 # imported only inside a function, and only in these files
 HOST_ONLY = ("cv2", "PIL")
 HOST_ONLY_FILES = ("utils/image.py", "predict.py", "serve.py")
@@ -105,13 +107,16 @@ def test_guard_walks_the_port_experiments(tmp_path):
                  "models.normalization", "models.remat", "utils.convert", "data.csv_", "data.coco",
                  "data.pascal", "data.augment", "data.device_cache", "ops.augment", "evaluation",
                  "evaluation.coco_eval", "evaluation.voc", "evaluation.host_overlap", "train", "evaluate",
-                 "experiments.int8_microbench", "experiments.stage1_packing"):
+                 "experiments.int8_microbench", "experiments.stage1_packing",
+                 "tools.analyze_trace", "tools.parity_run"):
         assert f"efficientdet_tpu_torch.{name}" in mods
     src = tmp_path / "probe.py"
-    src.write_text("from ..experiments import packed_mbconv\nimport experiments.packed_chain\n")
-    # the port's own experiments, imported relatively, are not the JAX package's
+    src.write_text("from ..experiments import packed_mbconv\nimport experiments.packed_chain\n"
+                   "from ..tools import analyze_trace\nimport tools.parity_run\n"
+                   "import analyze_trace\n")
+    # the port's own experiments and tools, imported relatively, are not the JAX package's
     assert [m for m in _imports(str(src)) if m.split(".")[0] in FORBIDDEN] == [
-        "experiments.packed_chain"]
+        "experiments.packed_chain", "tools.parity_run", "analyze_trace"]
 
 
 def test_experiment_entry_points_raise_without_gpu(monkeypatch):

@@ -49,12 +49,11 @@ from efficientdet_tpu.predict import Predictor as JPredictor
 import efficientdet_tpu_torch as et
 from efficientdet_tpu_torch import export
 from efficientdet_tpu_torch.data.common import letterbox_hostside
-from efficientdet_tpu_torch.experiments.drawn_weights import calibrate_bn, calibration_images
 from efficientdet_tpu_torch.ops.preprocess import preprocess_image
 from efficientdet_tpu_torch.predict import Predictor
 from efficientdet_tpu_torch.utils.convert import from_flax_variables, load_flax_variables
 from efficientdet_tpu_torch.utils.detections import detection_mismatch
-from torch_family import draw_variables, one_torch_thread, port_config
+from torch_family import calibrate_variables, draw_variables, one_torch_thread, port_config
 
 SIZE = 384
 NUM_CLASSES = 90
@@ -66,9 +65,6 @@ BOX_PX = 1e-3
 SCORE = 1e-5
 EXPORT_SCORE_REL = 2.0 ** -21  # see above: the float64 witness
 
-_STATS = {"mean": "running_mean", "var": "running_var"}
-
-
 def entry_variables(phi: int, seed: int = 0):
     """(JAX config, JAX model, numpy flax variables) of D``phi`` at SIZE."""
     cfg = JModelConfig.for_phi(phi, num_classes=NUM_CLASSES, image_size=SIZE)
@@ -76,16 +72,7 @@ def entry_variables(phi: int, seed: int = 0):
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))
     variables = jax.tree.map(np.asarray, draw_variables(shapes, np.random.RandomState(seed),
                                                         gain=GAIN))
-    port = load_flax_variables(et.EfficientDet(port_config(cfg)), variables)
-    state = calibrate_bn(port, calibration_images(SIZE, seed)).state_dict()
-
-    def stat(path, _):
-        keys = [p.key for p in path]
-        return state[".".join(keys[:-1] + [_STATS[keys[-1]]])].numpy().copy()
-
-    variables = {**variables,
-                 "batch_stats": jax.tree_util.tree_map_with_path(stat, variables["batch_stats"])}
-    return cfg, jmodel, variables
+    return cfg, jmodel, calibrate_variables(cfg, variables, seed)
 
 
 def source_image(seed: int, hw) -> np.ndarray:

@@ -5,7 +5,8 @@ the fixtures and tests defined here and names its phis in ``family_for`` (one
 file a few phis, so that xdist's loadfile deals them to several workers).
 The flax variables are drawn with numpy over the shapes of
 ``jax.eval_shape(model.init, ...)`` (no init compile) and bridged into the
-port with ``load_flax_variables``. One jitted JAX call normalises a batch of
+port with ``load_flax_variables`` (D6/D7 at conv gain 1 with their BN
+statistics calibrated first: ``CALIBRATED``). One jitted JAX call normalises a batch of
 uint8 noise and returns the backbone taps, the BiFPN outputs, the
 anchor-major head outputs and the detections the JAX ``predict_pipeline``
 makes of them; the port runs the same stages eagerly and its own
@@ -38,6 +39,7 @@ from efficientdet_tpu.models.efficientnet import EfficientNet as JEfficientNet
 from efficientdet_tpu.ops.preprocess import preprocess_batch_fixed as jpreprocess
 import efficientdet_tpu_torch as et
 import efficientdet_tpu_torch.ops.nms as tn
+from efficientdet_tpu_torch.experiments.drawn_weights import calibrate_bn, calibration_images
 from efficientdet_tpu_torch.ops.preprocess import preprocess_batch_fixed
 from efficientdet_tpu_torch.utils.convert import load_flax_variables
 
@@ -56,6 +58,15 @@ FLOAT32_BOX_PX = {5: 1e-2}
 # 128 whose P7 is odd and above 1 (3 x 3).
 SIZES = {1: 640, 2: 384, 3: 384, 4: 384, 5: 384, 6: 384, 7: 384}
 NUM_CLASSES = 90
+# The phis drawn at conv gain 1 with their BN statistics calibrated
+# (calibrate_variables), as the entry-point tests draw them: drawn statistics
+# do not normalise, and the unweighted BiFPN of D6/D7 sums two or three
+# inputs at each of its layers, so that at the other phis' draw (gain 1.5,
+# uncalibrated) their P3-P7 reach about 1e11, every kept score is 1.0 and
+# the boxes are clipped, and a comparison sees nothing but ties; calibrated
+# at gain 1.5 their class logits still reach 2e2 (every kept score 1.0).
+CALIBRATED = (6, 7)
+CALIBRATED_GAIN = 1.0
 
 
 def draw_variables(shapes, rng: np.random.RandomState, gain: float = 1.5):
@@ -77,6 +88,25 @@ def draw_variables(shapes, rng: np.random.RandomState, gain: float = 1.5):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def calibrate_variables(cfg, variables, seed: int):
+    """``variables`` with every BN's running statistics moved halfway to its
+    statistics on four noise images (``experiments/drawn_weights.calibrate_bn``,
+    run on the port) and written back into the flax tree, so that both
+    packages hold the same values."""
+    port = load_flax_variables(et.EfficientDet(port_config(cfg)), variables)
+    state = calibrate_bn(port, calibration_images(cfg.image_size, seed)).state_dict()
+
+    def stat(path, _):
+        keys = [p.key for p in path]
+        return state[".".join(keys[:-1] + [_STATS[keys[-1]]])].numpy().copy()
+
+    return {**variables,
+            "batch_stats": jax.tree_util.tree_map_with_path(stat, variables["batch_stats"])}
+
+
 def port_config(cfg):
     fields = {f.name for f in dataclasses.fields(et.ModelConfig)} - {"anchor"}
     return et.ModelConfig(
@@ -96,8 +126,10 @@ def jax_run(phi: int, seed: int = 0):
     model = JEfficientDet(config=cfg)
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, size, size, 3)))
     rng = np.random.RandomState(seed)
-    variables = draw_variables(shapes, rng)
+    variables = draw_variables(shapes, rng, CALIBRATED_GAIN if phi in CALIBRATED else 1.5)
     images = rng.randint(0, 256, (1, size, size, 3)).astype(np.uint8)
+    if phi in CALIBRATED:
+        variables = calibrate_variables(cfg, jax.tree.map(np.asarray, variables), seed)
     anchors = jnp.asarray(anchors_for_shape((size, size), cfg.anchor))
 
     @jax.jit
