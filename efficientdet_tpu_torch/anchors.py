@@ -17,6 +17,7 @@ import torch
 
 from .configs import AnchorConfig
 from .utils.cuda_graph import capturable_constant
+from .utils.profiling import span
 
 BOX_MEAN = (0.0, 0.0, 0.0, 0.0)
 BOX_STD = (0.2, 0.2, 0.2, 0.2)
@@ -234,7 +235,9 @@ def anchor_targets_batch_compact(
     negative_iou: float = 0.4,
 ):
     """:func:`anchor_targets_compact` over a batch: (cls_labels (B, A),
-    box_targets (B, A, 4), anchor_state (B, A)), the train step's form."""
+    box_targets (B, A, 4), anchor_state (B, A)), the train step's form; a
+    ``loss.targets`` span while spans are recorded."""
     if gt_boxes.dim() != 3:
         raise ValueError(f"expected (B, G, 4) boxes, got shape {tuple(gt_boxes.shape)}")
-    return anchor_targets_compact(anchors, gt_boxes, gt_labels, positive_iou, negative_iou)
+    with span("loss.targets"):
+        return anchor_targets_compact(anchors, gt_boxes, gt_labels, positive_iou, negative_iou)

@@ -14,6 +14,12 @@ The focal term over compact integer labels is :class:`_FocalSum`, a
 several (B, A, C) float32 temporaries for the backward pass, this keeps only
 the logits. The per-level and the concatenated loss share it, so their
 gradients agree.
+
+While spans are recorded (``utils/profiling.py``) the focal term opens a
+``loss.focal`` span, forward and in ``_FocalSum.backward`` (the one-hot
+form's backward is autograd's own and records none), and the Huber
+term a ``loss.huber`` span, forward and over its backward (two gradient
+hooks); they observe only, and change no operation, order or dtype.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .utils.profiling import backward_span, span
 
 
 def _math(x: torch.Tensor) -> torch.Tensor:
@@ -99,11 +107,12 @@ class _FocalSum(torch.autograd.Function):
         cl, labels, include = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
             return None, None, None, None, None
-        d = _focal_grad_elementwise(_math(cl), _onehot(labels, cl.shape[-1]),
-                                    ctx.alpha, ctx.gamma)
-        gx = g.reshape(g.shape + (1,) * (include.dim() - 1))
-        d = d * (include * gx).unsqueeze(-1)
-        return d.to(cl.dtype), None, None, None, None
+        with span("loss.focal"):
+            d = _focal_grad_elementwise(_math(cl), _onehot(labels, cl.shape[-1]),
+                                        ctx.alpha, ctx.gamma)
+            gx = g.reshape(g.shape + (1,) * (include.dim() - 1))
+            d = d * (include * gx).unsqueeze(-1)
+            return d.to(cl.dtype), None, None, None, None
 
 
 def _focal_sum(cl, labels, include, alpha, gamma):
@@ -130,13 +139,14 @@ def focal_loss(
     integer labels (-1 = no class), the compact form of
     ``anchors.anchor_targets_compact``; anchor_state (B, A). Scalar.
     """
-    if normalizer is None:
-        normalizer = _normalizer(anchor_state)
-    include = (anchor_state != -1.0).float()
-    if cls_targets.dim() == cls_logits.dim() - 1:
-        return _focal_sum(cls_logits, cls_targets, include, alpha, gamma).sum() / normalizer
-    loss = _focal_elementwise(cls_logits, cls_targets, alpha, gamma)
-    return (loss * include.unsqueeze(-1)).sum() / normalizer
+    with span("loss.focal"):
+        if normalizer is None:
+            normalizer = _normalizer(anchor_state)
+        include = (anchor_state != -1.0).float()
+        if cls_targets.dim() == cls_logits.dim() - 1:
+            return _focal_sum(cls_logits, cls_targets, include, alpha, gamma).sum() / normalizer
+        loss = _focal_elementwise(cls_logits, cls_targets, alpha, gamma)
+        return (loss * include.unsqueeze(-1)).sum() / normalizer
 
 
 def _huber_elementwise(box_preds: torch.Tensor, box_targets: torch.Tensor,
@@ -156,11 +166,14 @@ def smooth_l1_loss(
     """Smooth-L1 over the positive anchors, divided by the batch's positive
     count (``normalizer`` when given). box_preds, box_targets (B, A, 4);
     anchor_state (B, A). Scalar."""
-    loss = _huber_elementwise(box_preds, box_targets, sigma)
-    positive = (anchor_state == 1.0).float()
-    if normalizer is None:
-        normalizer = _normalizer(anchor_state)
-    return (loss * positive.unsqueeze(-1)).sum() / normalizer
+    with span("loss.huber"):
+        loss = _huber_elementwise(box_preds, box_targets, sigma)
+        positive = (anchor_state == 1.0).float()
+        if normalizer is None:
+            normalizer = _normalizer(anchor_state)
+        out = (loss * positive.unsqueeze(-1)).sum() / normalizer
+        backward_span("loss.huber", out, box_preds)
+        return out
 
 
 def detection_loss_from_levels(
@@ -199,10 +212,15 @@ def detection_loss_from_levels(
         state = anchor_state[:, off:off + n].reshape(b, h, w, a)
         include = (state != -1.0).float()
         positive = (state == 1.0).float()
-        cls_total = cls_total + _focal_sum(cl.reshape(b, h, w, a, c), labels, include, alpha, gamma)
+        with span("loss.focal"):
+            cls_total = cls_total + _focal_sum(cl.reshape(b, h, w, a, c), labels, include,
+                                               alpha, gamma)
         bt = box_targets[:, off:off + n].reshape(b, h, w, a, 4)
-        huber = _huber_elementwise(bl.reshape(b, h, w, a, 4), bt, sigma)
-        box_total = box_total + (huber.sum(dim=4) * positive).sum(dim=(1, 2, 3))
+        with span("loss.huber"):
+            huber = _huber_elementwise(bl.reshape(b, h, w, a, 4), bt, sigma)
+            level = (huber.sum(dim=4) * positive).sum(dim=(1, 2, 3))
+            backward_span("loss.huber", level, bl)
+        box_total = box_total + level
         off += n
     cls_loss = cls_total.sum() / normalizer
     box_loss = box_total.sum() / normalizer

@@ -33,7 +33,7 @@ from ..ops.nms import (
     batched_filter_from_logits,
 )
 from ..ops.preprocess import preprocess_batch_fixed
-from ..utils.profiling import stage
+from ..utils.profiling import span, stage
 from .bifpn import BiFPN
 from .conv import Conv2d
 from .efficientnet import EfficientNet
@@ -277,7 +277,8 @@ def make_predict_fn(
     """Return ``predict(images) -> detections`` over ``model``'s weights."""
 
     def predict(images: torch.Tensor):
-        return predict_pipeline(model, images, eval_config, preprocess, front_end)
+        with span("predict"):
+            return predict_pipeline(model, images, eval_config, preprocess, front_end)
 
     return predict
 

@@ -43,7 +43,7 @@ from .models.detector import EfficientDet, resolve_device
 from .ops.augment import augment_batch_device
 from .ops.preprocess import preprocess_batch_fixed
 from .parallel.context import parallel_context
-from .utils.profiling import stage
+from .utils.profiling import span, stage
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 Tensors = Dict[str, torch.Tensor]
@@ -304,6 +304,10 @@ def make_train_step(model: EfficientDet, config: TrainConfig, device=None, paral
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
+        with span("step"):
+            return _step(state, batch, generator)
+
+    def _step(state: TrainState, batch: Dict[str, Any], generator: Optional[torch.Generator]):
         _check_state(model, state, own)
         if not model.training:
             model.train()
@@ -327,7 +331,8 @@ def make_train_step(model: EfficientDet, config: TrainConfig, device=None, paral
                 aux["num_positives"] = (anchor_state == 1.0).sum(dim=1).float().mean()
             else:
                 total, aux = parallel.loss(model, config, images, boxes, labels, generator)
-            grad_list = torch.autograd.grad(total, params)
+            with span("backward"):
+                grad_list = torch.autograd.grad(total, params)
         if parallel is not None:
             grad_list = parallel.reduce_grads(grad_list)
             total, aux = parallel.reduce_metrics(total, aux)

@@ -4,7 +4,6 @@ import glob
 import json
 import os
 
-import pytest
 import torch
 
 from efficientdet_tpu_torch.utils import profiling
@@ -34,21 +33,3 @@ def test_flops_estimate_is_none_on_failure():
         raise RuntimeError("no")
 
     assert profiling.flops_estimate(broken, torch.zeros(1)) is None
-
-
-def test_step_timer_skips_its_warmup(monkeypatch):
-    clock = iter([10.0, 12.0])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    timer = profiling.StepTimer(items_per_step=8, warmup=2)
-    timer.tick()
-    assert timer.rate() == 0.0  # still warming up
-    timer.tick(fence_output=(torch.zeros(2), {"n": torch.ones(1)}))  # the clock starts here: 10.0
-    assert timer.rate() == 0.0  # no step timed yet
-    timer.tick()
-    timer.tick()
-    assert timer.rate() == pytest.approx(2 * 8 / 2.0)  # two steps of 8 items in 2 s, world of 1
-
-
-def test_start_server_names_trace():
-    with pytest.raises(NotImplementedError, match="trace"):
-        profiling.start_server(9999)

@@ -258,7 +258,12 @@ def test_stage_rejects_unknown_names_and_turns_off():
         with profiling.stages_off():
             pass
         assert isinstance(profiling.stage("heads"), contextlib.nullcontext)
-    assert not isinstance(profiling.stage("heads"), contextlib.nullcontext)
+    # a range only while spans are recorded (a profiler session, or record_spans())
+    assert isinstance(profiling.stage("heads"), contextlib.nullcontext)
+    with profiling.record_spans():
+        assert not isinstance(profiling.stage("heads"), contextlib.nullcontext)
+        with profiling.stages_off():
+            assert isinstance(profiling.stage("heads"), contextlib.nullcontext)
 
 
 # ---------------------------------------------------------------- real CPU traces
@@ -377,6 +382,35 @@ def test_cpu_trace_of_a_training_step(tmp_path):
     b, size = 2, ranks.SIZE
     stem = 2 * b * (size // 2) ** 2 * 32 * 3 * 3 * 3
     assert backward == 2 * forward - stem
+    # the spans' finer ranges (the loss's parts, step, backward) change no
+    # op's stage: the same step traced with them left out gives the same table
+    names = {e["name"] for e in at.load_events(path) if e.get("cat") == "user_annotation"}
+    subranges = set(profiling.SPAN_RANGES.values())
+    assert subranges - {"predict"} <= names
+    real = torch.profiler.record_function
+
+    def stages_only(name, *args):
+        return contextlib.nullcontext() if name in subranges else real(name, *args)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.profiler, "record_function", stages_only)
+        bare = _trace(tmp_path, "train_bare.json", call, 1)
+    assert not subranges & {e["name"] for e in at.load_events(bare)
+                            if e.get("cat") == "user_annotation"}
+    assert _op_stages(path) == _op_stages(bare)
+    assert {k: v["launches"] for k, v in r["stages"].items()} == {
+        k: v["launches"] for k, v in at.analyze(bare)["stages"].items()}
+
+
+def _op_stages(path):
+    """Each CPU op's name with the stage the analyser gives it, counted."""
+    host = at._Host(at.load_events(path))
+    got = collections.Counter()
+    for e in host.ordered:
+        if e["cat"] == "cpu_op":
+            st, bwd = host.stage(e)
+            got[(e["name"], st, bwd)] += 1
+    return got
 
 
 def test_stage_ranges_add_no_op(slim, tmp_path):
