@@ -35,7 +35,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    kernel's layout; its time at B=128 (ms and device_ms, as for the head);
 4. pipeline: D0@512 (90 classes, random weights from seed 0), BN folded,
    three bf16 calls at batch 16 through make_predict_fn with the launch
-   counters reset just before; the detections checked; then img/s at
+   counters reset just before (2 head, 1 NMS and 48 conv epilogue launches
+   a call, 4 of them padded); the detections checked; then img/s at
    batch 128 bf16; the "pixel_gather" front end at batch 16 (one NMS launch
    a call) against "concat" on the same head outputs, and its img/s at
    batch 128;
@@ -60,7 +61,14 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    rates (f32/bf16 x chains 1/4), the f32 swish rate, the 1x1 products'
    ms, and the stages-1-3 floor against the chain phase's D0 baseline and
    the pipeline phase's ms per call;
-9. predictor: Predictor(phi=0) in f32 and bf16 at five source shapes
+9. conv_epilogue: csrc/conv_epilogue.cu against its twin (ATen's add,
+   silu, add and pad) on the inputs of every epilogue call of a folded
+   D0@512 backbone forward (experiments/conv_epilogue.py): float32 at batch
+   16 bit for bit, bf16 at batch 128 within one ulp of the twin run in
+   float32 and rounded once; 48 calls a forward, 4 of them padded; then at
+   those batch-128 shapes the launch's ms, the kernel's device ms, the
+   twin's ms and the bound of its bytes;
+10. predictor: Predictor(phi=0) in f32 and bf16 at five source shapes
    (480x640, 640x480, 512x512, 1080x1920, 300x200): each shape's CUDA graph
    replay equal to the eager call on two images, ms per image (median of
    20) for the replay and for eager, the graphs' pool memory, the kernels
@@ -68,7 +76,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    off) at 480x640; a ninth shape evicts the oldest graph; 8 threads
    sharing one instance at two source shapes, each answer equal to eager()
    of its own image;
-10. serve: BatchingPredictor over D0@512 bf16, BN folded, batch 32,
+11. serve: BatchingPredictor over D0@512 bf16, BN folded, batch 32,
    max_delay 5 ms, pipeline depth 2; warmup() captures the buckets 1..32;
    lone requests and a full bucket equal predict_pipeline on the same
    canvases; both kernels in the profile of one bucket's replay; then a
@@ -80,7 +88,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    the bucket sizes; one POST of a PNG to a live make_http_server: a
    status line, 501 on a host without PIL, else 200 with
    predict_pipeline's detections;
-11. export: D0@512 bf16, BN folded, batch 32 exported to a .edz artifact
+12. export: D0@512 bf16, BN folded, batch 32 exported to a .edz artifact
    on the card (export.save_exported: torch.export of the whole pipeline,
    the head and NMS kernels as torch.library ops, the weights as program
    inputs): export and load seconds, artifact, program and weights MB, the
@@ -94,7 +102,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    card and onto the CPU (the gpu_vs_cpu rule); BatchingPredictor.
    from_artifact closed loops of 1 s at C = 1 and 64 on 480x640 sources,
    every answer equal to predict_pipeline's detections of its source;
-12. train: the training step (train_lib.make_train_step) at D0@512, batch
+13. train: the training step (train_lib.make_train_step) at D0@512, batch
    64, TrainConfig defaults, on the JAX package's tools/bench_train.py
    batch (seed 0, 12 boxes an image), in float32 (TF32 off), bf16, and
    float32 with remat: 2 warm-up and 10 timed steps, img/s, ms/step, peak memory, every step's
@@ -106,7 +114,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    the trained weights folded through the main path (both kernels);
    with --profile-dir, two profiled float32 steps (kernels and ATen
    operators by device time, the trace as train_trace.json.gz);
-13. data: 256 numpy images over the predictor phase's five shapes (1-20
+14. data: 256 numpy images over the predictor phase's five shapes (1-20
    boxes of 16-256 px, 90 classes, seed 0): batch_iterator's ms per batch
    of 64 at 512 px with workers 0, with 8 workers and the default intra-op
    threads, with 8 workers and one, and with the host augmenter; the
@@ -114,7 +122,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    MB and get_batch's ms; the device augmenter at batch 64 (ms, device ms,
    the card against the CPU on the same matrices and colour factors, two
    card runs equal); the native IoU library built and equal to numpy;
-14. train_cli: train.train_from_datasets (the CLI's loop) at D0@512 batch 64
+15. train_cli: train.train_from_datasets (the CLI's loop) at D0@512 batch 64
    f32 (TF32 off), 2 epochs of 5 steps, in four configurations: (a)
    --workers 0, (b) --workers 8, (c) --random-transform --workers 8, (d)
    --device-cache 256 --device-augment with the epoch-end COCO evaluation on
@@ -127,7 +135,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    oracle predict function at AP 1.0 through collect_detections, and
    evaluate.py's function on (d)'s snapshots giving the same AP; then
    train.main on a CSV dataset of PNG files where PIL or cv2 imports;
-15. parallel: data and spatial parallelism (parallel/). In this process,
+16. parallel: data and spatial parallelism (parallel/). In this process,
    NCCL at world size 1, D0@512: make_sharded_predict_fn (bf16, BN folded,
    batch 128) equal to make_predict_fn bit for bit, with img/s beside the
    plain call's and phase pipeline's; make_sharded_train_step (f32, TF32
@@ -144,7 +152,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    1e-6), each rank's peak memory beside one process's, a DeviceDataCache of
    37 images split over the ranks against the unsharded cache; one record a
    check, the phase's seconds and the head and NMS launches;
-16. family: D1-D7 (the JAX package's bench_phi for every phi), each at its
+17. family: D1-D7 (the JAX package's bench_phi for every phi), each at its
    own resolution, 90 classes, weights drawn with numpy from the seed phi
    at conv variance 1 / fan-in (experiments/drawn_weights.py, FAMILY_GAIN:
    well conditioned at every phi), BN folded, bf16, "anchor_major", at
@@ -163,7 +171,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    --remat): 2 warm-up and 4 timed steps, ms/step, img/s, peak memory,
    every loss and gradient norm finite, the last timed loss below the
    first;
-17. entry_points: every entry point above D0 at D4@1024 and D7@1536, on
+18. entry_points: every entry point above D0 at D4@1024 and D7@1536, on
    weights drawn at FAMILY_GAIN with their BN statistics calibrated
    (experiments/drawn_weights.calibrate_bn): the Predictor in f32 and bf16,
    score threshold 0, at 1080x1920 and 300x200 sources: each shape's graph
@@ -192,7 +200,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    against the CPU's float64 step by parallel/tolerances.deep_step_errors
    (loss, BN statistics, gradient norm); the phase's launches and the
    launches its graphs hold;
-18. stages: device time by stage (efficientdet_tpu_torch/tools/
+19. stages: device time by stage (efficientdet_tpu_torch/tools/
    analyze_trace.py) in a fresh process (python3 chip_smoke.py
    --stages-child DIR: torch.profiler with the CUDA activity alone has
    recorded no kernel late in this script; what this process's profiler
@@ -208,7 +216,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    within 0.1%, in inference "other" under 5% of it and the head launches
    in heads, the NMS launch in postprocess; the D0 call's kernel count the
    same with every stage range a nullcontext;
-19. parity_drill: tools/parity_run.py on the card: archives of TF-named
+20. parity_drill: tools/parity_run.py on the card: archives of TF-named
    arrays written by utils/convert.export_detector_tf_style from D0@512 and
    D7@1536 (full width, 90 classes, weights drawn at FAMILY_GAIN with
    calibrated BN), the drill in f32 (strict full-coverage import, sharded
@@ -217,15 +225,15 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    truncated array fails the strict import; the card's D0 detections
    (--save-detections) on 4 images against the CPU drill's on the same
    archive (counts and classes exact, boxes 1e-3 px, scores 1e-5);
-20. int8: experiments/int8_microbench.py (the JAX script's keys: int8
+21. int8: experiments/int8_microbench.py (the JAX script's keys: int8
    against bf16 for a 4096^3 product, a 3x3 and a depthwise 3x3 conv at
    (8, 224, 128, 128), two-point slopes over CUDA graphs of chained
    iterations, *_int8_error where an int8 op does not run) beside the
    card's bf16 and int8 dense peaks;
-21. stage1_packing: experiments/stage1_packing.py (the stage-1 block's four
+22. stage1_packing: experiments/stage1_packing.py (the stage-1 block's four
    formulations at batch 16, 512 px, 48 -> 24, bf16, forward and weight
    gradients; each against ref at rtol/atol 3e-2, then its ms);
-22. the kernels line, the card line, and the last line,
+23. the kernels line, the card line, and the last line,
    {"ok": true, "device": {...}}.
 
 Before each phase a line {"phase": "<name>"}; a phase's failure prints
@@ -267,7 +275,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # 1 compare; the areas (per box) are not counted
 NMS_OPS_PER_PAIR = 14
 
-SOURCES = ["head_pointwise", "nms_suppress", "fused_mbconv", "tap_floor"]
+SOURCES = ["head_pointwise", "nms_suppress", "fused_mbconv", "tap_floor", "conv_epilogue"]
 D0_PIXELS = 64 * 64 + 32 * 32 + 16 * 16 + 8 * 8 + 4 * 4  # pixel rows per image at 512
 # the JAX tests' tiny MBConv cases (name, batch, side, cin, cexp, cout, k, se)
 MBCONV_TINY = [("tiny_exp_skip", 2, 16, 8, 48, 8, 3, 2),
@@ -288,6 +296,7 @@ MBCONV_EDGES = [("hw20_cin24_skip", 1, 20, 24, 144, 24, 3, 4),
                 ("hw12_odd_widths", 1, 12, 7, 21, 9, 3, 2)]
 MBCONV_STEPS = 10  # timed calls per kernel and block (the plain version: a fifth)
 CHAIN_STEPS = 10
+EPILOGUE_STEPS = 10  # timed launches a shape (the twin: a fourth)
 FLOOR_REPEATS = 512
 FLOOR_STEPS = 10
 CHECK_BATCH = 16   # the kernels against their plain versions; the main-path calls
@@ -345,7 +354,7 @@ def phase_device(cuda_build):
 _MAIN_PATH_KERNELS = ("head_pw_resident_kernel", "head_pw_streamed_kernel", "head_pw_kernel",
                       "nms_suppress_kernel", "mbconv_pass_kernel", "mbconv_se_kernel",
                       "mbconv_rp_ring_kernel", "tap_floor_fma_f32", "tap_floor_fma_bf16",
-                      "tap_floor_swish_f32")
+                      "tap_floor_swish_f32", "conv_epilogue_kernel")
 
 
 def _demangle(mangled):
@@ -608,7 +617,7 @@ def _check_detections(dets, num_classes, batch):
     return n
 
 
-def phase_pipeline(et, hk, nk, card, profile_dir):
+def phase_pipeline(et, hk, nk, ce, card, profile_dir):
     import torch
 
     model, cfg = et.build_efficientdet(0, num_classes=90, dtype=torch.bfloat16, seed=0)
@@ -620,15 +629,19 @@ def phase_pipeline(et, hk, nk, card, profile_dir):
 
     hk.head_pointwise_anchor_major.launches = 0
     nk.suppression_keep_mask.launches = 0
+    ce.conv_epilogue.launches = ce.conv_epilogue.padded = 0
     calls = 3
     for _ in range(calls):
         dets = predict(images)
         n = _check_detections(dets, cfg.num_classes, CHECK_BATCH)
     torch.cuda.synchronize()
     launches = {"head_pointwise": hk.head_pointwise_anchor_major.launches,
-                "nms_suppress": nk.suppression_keep_mask.launches}
-    if launches != {"head_pointwise": 2 * calls, "nms_suppress": calls}:
-        raise AssertionError(f"the main path did not go through both kernels: {launches}")
+                "nms_suppress": nk.suppression_keep_mask.launches,
+                "conv_epilogue": ce.conv_epilogue.launches,
+                "conv_epilogue_padded": ce.conv_epilogue.padded}
+    if launches != {"head_pointwise": 2 * calls, "nms_suppress": calls,
+                    "conv_epilogue": 48 * calls, "conv_epilogue_padded": 4 * calls}:
+        raise AssertionError(f"the main path did not go through its kernels: {launches}")
 
     # the pixel prefilter: one NMS launch a call; the same head outputs as
     # "concat", so its detections are those of "concat" up to tie order
@@ -1112,6 +1125,32 @@ def _valid(dets, num_classes):
     boxes, scores, classes = dets
     return bool(np.isfinite(boxes).all() and ((scores > 0) & (scores <= 1)).all()
                 and ((classes >= 0) & (classes < num_classes)).all())
+
+
+def phase_conv_epilogue(xce):
+    """The conv epilogue kernel against its twin at every call of a folded
+    D0@512 backbone forward (float32 at CHECK_BATCH, bf16 at BENCH_BATCH),
+    then its time at the batch-128 shapes beside its bound and the twin's."""
+    import torch
+
+    backbone, cfg = xce.folded_backbone(0, torch.float32)
+    images = xce.nhwc_images(CHECK_BATCH, cfg.image_size, torch.float32,
+                             torch.Generator(device="cuda").manual_seed(3))
+    _, f32 = xce.forward_calls(backbone, images, check=True)
+    del backbone, images
+    rec = xce.run(0, BENCH_BATCH, torch.bfloat16, EPILOGUE_STEPS)
+    out = {"phase": "conv_epilogue", "f32_batch": CHECK_BATCH, "f32_max_abs_err": f32["max_abs_err"],
+           **{k: v for k, v in rec.items() if k != "calls"},
+           "note": "check: the worst over the bf16 forward's calls (ulps against the twin in "
+                   "float32 rounded once; ulps_vs_bf16_ops against the twin in bf16); ms the "
+                   "launches by CUDA events, device_ms the kernel by torch.profiler, plain_ms "
+                   "the twin, bound_ms the bytes at 3.35 TB/s, each summed over the calls"}
+    emit(out)
+    if (f32["max_abs_err"] != 0.0 or rec["check"]["ulps"] > 1 or rec["launches"] != 48
+            or rec["padded"] != 4):
+        raise AssertionError(f"conv_epilogue: the kernel left its twin or the path: {out}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_predictor(et, nk, card):
@@ -3923,11 +3962,13 @@ def main() -> int:
     if args.stages_child:
         return stages_child(args.stages_child)
     import efficientdet_tpu_torch as et
+    import efficientdet_tpu_torch.ops.conv_epilogue as ce
     import efficientdet_tpu_torch.ops.head_kernel as hk
     import efficientdet_tpu_torch.ops.nms as tn
     import efficientdet_tpu_torch.ops.nms_kernel as nk
     import efficientdet_tpu_torch.ops.mbconv_kernel as mk
     import efficientdet_tpu_torch.ops.tap_floor_kernel as tk
+    from efficientdet_tpu_torch.experiments import conv_epilogue as xce
     from efficientdet_tpu_torch.experiments import packed_chain as pc
     from efficientdet_tpu_torch.experiments import packed_mbconv as pm
     from efficientdet_tpu_torch.experiments import tap_floor as tf
@@ -3937,12 +3978,14 @@ def main() -> int:
     card = run_phase("device", phase_device, cuda_build)
     head_err, head_t = run_phase("head_kernel", phase_head, hk)
     nms_t = run_phase("nms_kernel", phase_nms, nk)
-    launches, ms_per_call = run_phase("pipeline", phase_pipeline, et, hk, nk, card, args.profile_dir)
+    launches, ms_per_call = run_phase("pipeline", phase_pipeline, et, hk, nk, ce, card,
+                                        args.profile_dir)
     run_phase("gpu_vs_cpu", phase_gpu_vs_cpu, et, tn)
     mb_err, mb_blocks, harness = run_phase("mbconv_kernels", phase_mbconv, mk, pm)
     chains, chain_launches = run_phase("chain", phase_chain, mk, pc)
     floor_err, floor, floor_plain, floor_launches = run_phase(
         "tap_floor", phase_tap_floor, tk, tf, chains[0]["baseline_ms"], ms_per_call)
+    epi = run_phase("conv_epilogue", phase_conv_epilogue, xce)
     run_phase("predictor", phase_predictor, et, nk, card)
     run_phase("serve", phase_serve, et, hk, nk, card)
     export_launches = run_phase("export", phase_export, et, hk, nk, card)
@@ -4026,6 +4069,13 @@ def main() -> int:
          "device_ms": floor["device_ms"], "train_cli_eval_launches": eval_launches["tap_floor"],
          "parallel_launches": par_launches["tap_floor"], "family_launches": 0,
          "stages_launches": 0, "parity_drill_launches": 0},
+        {"name": "conv_epilogue", "route": "cuda",
+         "source": "efficientdet_tpu_torch/csrc/conv_epilogue.cu",
+         "replaces": None, "launches": launches["conv_epilogue"],
+         "padded": launches["conv_epilogue_padded"],
+         "max_abs_err": epi["f32_max_abs_err"], "bf16_ulps": epi["check"]["ulps"],
+         "ms": epi["ms"], "plain_ms": epi["plain_ms"], "bound_ms": epi["bound_ms"],
+         "bound_by": epi["bound_by"], "library_ms": None, "device_ms": epi["device_ms"]},
     ], "note": "head_pointwise, nms_suppress: ms per main-path call at batch 128 (head: the "
                "class and the box launch together), the wrapper's call by CUDA events; "
                "device_ms the kernels alone, by torch.profiler; launches over 3 pipeline calls. "
@@ -4052,7 +4102,11 @@ def main() -> int:
                "launches in the stages phase's fresh process (D0@512 b128 and D1-D7 at "
                "FAMILY_BATCH, warm-up and profiled eager calls; the training steps launch none). "
                "parity_drill_launches: their launches in the parity_drill phase (the drill at "
-               "D0@512 and D7@1536 on 16 images, and at D0 on 4 for the card-CPU check).",
+               "D0@512 and D7@1536 on 16 images, and at D0 on 4 for the card-CPU check). "
+               "conv_epilogue: replaces no TPU kernel (XLA fuses a conv's epilogue); launches "
+               "and padded over the same 3 pipeline calls (48 and 4 a call), ms summed over "
+               "one D0 forward's 48 calls at batch 128 bf16, plain_ms ATen's add, silu, add "
+               "and pad there.",
         "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

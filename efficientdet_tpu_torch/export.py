@@ -3,11 +3,13 @@
 Counterpart of the JAX package's ``export.py``. ``torch.export`` traces the
 whole batched predict program (uint8 normalise -> BN-folded forward ->
 decode -> per-class NMS, ``front_end="anchor_major"``) at one static input
-shape into an ``ExportedProgram``. The head and NMS kernels appear in it as
-the custom ops ``efficientdet_tpu_torch::head_pointwise`` and
-``efficientdet_tpu_torch::nms_keep_mask`` (ops/head_kernel.py,
-ops/nms_kernel.py), so the serving host needs torch, those two modules and
-this loader, and no model-construction code: the artifact pins the anchor
+shape into an ``ExportedProgram``. The head, NMS and conv-epilogue kernels
+appear in it as the custom ops ``efficientdet_tpu_torch::head_pointwise``,
+``efficientdet_tpu_torch::nms_keep_mask`` and
+``efficientdet_tpu_torch::conv_epilogue_`` / ``conv_epilogue_padded``
+(ops/head_kernel.py, ops/nms_kernel.py, ops/conv_epilogue.py), so the
+serving host needs torch, those three modules and this loader, and no
+model-construction code: the artifact pins the anchor
 layout, the NMS thresholds and the front end at export time.
 
 Artifact format (one zip, extension ``.edz`` by convention), with the JAX
@@ -186,11 +188,11 @@ def load_exported(path: str, device=None):
     ``(boxes, scores, classes, num_valid)`` exactly as
     :func:`efficientdet_tpu_torch.make_predict_fn` does. The program is moved
     to ``device`` when it was exported on another (a CPU-made artifact
-    serves on the card). Loading imports the two kernels' op registrations
-    and builds no model.
+    serves on the card). Loading imports the kernels' op registrations and
+    builds no model.
     """
     from .models.detector import resolve_device
-    from .ops import head_kernel, nms_kernel  # noqa: F401 — registers the program's ops
+    from .ops import conv_epilogue, head_kernel, nms_kernel  # noqa: F401 — the program's ops
 
     device = resolve_device(device)
     with zipfile.ZipFile(path, "r") as zf:

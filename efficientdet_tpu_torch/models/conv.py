@@ -9,14 +9,24 @@ convolution itself. With stride 2 it is asymmetric for even sizes (k=3 pads
 (0, 1), k=5 pads (1, 2)), so the input is padded explicitly first.
 Under a spatial ``parallel_context`` a height band reads its halo rows from
 the neighbouring ranks first (parallel/context.py).
+
+A folded backbone conv called with grad off (:func:`folds`) runs without
+its bias (``bias=False``), and one pass of ``ops/conv_epilogue.py`` adds it
+with the activation and residual (models/efficientnet.py); that pass also
+writes the SAME pad of a following stride-2 conv
+(:meth:`Conv2d.explicit_pads`), which then reads its input as it is
+(``padded=True``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv_epilogue import Pads
 from ..ops.resample import same_pads
 from ..parallel.context import active_context
 
@@ -45,15 +55,41 @@ class Conv2d(nn.Module):
         )
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: bool = True, padded: bool = False) -> torch.Tensor:
+        """``bias=False`` leaves the bias out; ``padded``: ``x`` already holds
+        this conv's SAME pad (:meth:`explicit_pads`)."""
         k, s = self.kernel_size, self.stride
         w = self.weight.to(x.dtype)
-        b = None if self.bias is None else self.bias.to(x.dtype)
+        b = None if self.bias is None or not bias else self.bias.to(x.dtype)
+        if padded:
+            return F.conv2d(x, w, b, s, 0, 1, self.groups)
         ctx = active_context()
         if ctx is not None and (k > 1 or s > 1) and ctx.banded(x):
             return ctx.conv2d(x, w, b, k, s, self.groups,
                               lambda whole: same_conv(whole, w, b, k, s, self.groups))
         return same_conv(x, w, b, k, s, self.groups)
+
+    def explicit_pads(self, x: torch.Tensor) -> Optional[Pads]:
+        """(top, bottom, left, right): the SAME pad that :func:`same_conv`
+        writes around ``x`` before this conv runs on it; None where the conv
+        pads by itself, or ``x`` is a band (its halo brings the rows)."""
+        k, s = self.kernel_size, self.stride
+        if s == 1 and k % 2 == 1:
+            return None
+        ctx = active_context()
+        if ctx is not None and ctx.banded(x):
+            return None
+        pads = same_pads(x.shape[-2], k, s) + same_pads(x.shape[-1], k, s)
+        return pads if any(pads) else None
+
+
+def folds(conv: Conv2d, x: torch.Tensor) -> bool:
+    """Whether ``conv`` on ``x`` takes the one-pass epilogue: a folded conv
+    (it carries a bias) called with grad off, on the CPU (the op's twin) or
+    the card. Training, remat, any call with grad and the unfused model keep
+    ATen's separate ops."""
+    return (conv.bias is not None and not torch.is_grad_enabled()
+            and x.device.type in ("cpu", "cuda"))
 
 
 class SeparableConv(nn.Module):

@@ -18,7 +18,11 @@ draws for the concatenated batch; under a spatial one the SE's mean is the
 bands' sums all-reduced (parallel/context.py).
 
 ``fuse_bn=True`` builds the inference-folded variant: every conv carries a
-bias and no BatchNorm exists (utils/fold_bn.py makes its weights).
+bias and no BatchNorm exists (utils/fold_bn.py makes its weights). Called
+with grad off, its stem, expand, depthwise and project convs run without
+their biases, and one epilogue pass each adds the bias, the SiLU and the
+residual (models/conv.py ``folds``, ops/conv_epilogue.py); the expand pass of
+a stride-2 block also writes the depthwise conv's SAME pad.
 """
 
 from __future__ import annotations
@@ -36,14 +40,31 @@ from ..configs import (
     round_filters,
     round_repeats,
 )
+from ..ops.conv_epilogue import conv_epilogue
 from ..parallel.context import active_context
-from .conv import Conv2d
+from .conv import Conv2d, folds
 from .normalization import TpuBatchNorm
 from .remat import remat
 
 
 def _bn(channels: int, eps: float, fuse_bn: bool) -> nn.Module:
     return nn.Identity() if fuse_bn else TpuBatchNorm(channels, eps)
+
+
+def _conv_bn(conv: Conv2d, bn: nn.Module, x: torch.Tensor, silu: bool,
+             residual: torch.Tensor | None = None, padded: bool = False,
+             pads=None) -> torch.Tensor:
+    """``silu?(bn(conv(x))) [+ residual]``. Where the conv :func:`folds`:
+    the conv without its bias, then one epilogue pass, in place or into a
+    buffer padded by ``pads`` (the next conv's ``explicit_pads``).
+    ``padded``: ``x`` already holds this conv's SAME pad."""
+    if folds(conv, x):
+        y = conv(x, bias=False, padded=padded)
+        return conv_epilogue(y, conv.bias.to(y.dtype), residual, silu, pads)
+    x = bn(conv(x, padded=padded))
+    if silu:
+        x = F.silu(x)
+    return x if residual is None else x + residual
 
 
 class SqueezeExcite(nn.Module):
@@ -96,16 +117,19 @@ class MBConvBlock(nn.Module):
         """``keep``: the (B, 1, 1, 1) stochastic-depth mask of a residual
         block in training, or None."""
         inputs = x
+        pads = None
         if self.has_expand:
-            x = F.silu(self.expand_bn(self.expand_conv(x)))
-        x = F.silu(self.depthwise_bn(self.depthwise_conv(x)))
+            # a folded expand writes the stride-2 depthwise conv's SAME pad
+            if folds(self.expand_conv, x):
+                pads = self.depthwise_conv.explicit_pads(x)
+            x = _conv_bn(self.expand_conv, self.expand_bn, x, True, pads=pads)
+        x = _conv_bn(self.depthwise_conv, self.depthwise_bn, x, True, padded=pads is not None)
         if self.has_se:
             x = self.se(x)
-        x = self.project_bn(self.project_conv(x))
-        if self.residual:
-            if keep is not None:
-                x = x * keep / self.survival_prob
-            x = x + inputs
+        residual = inputs if self.residual and keep is None else None
+        x = _conv_bn(self.project_conv, self.project_bn, x, False, residual)
+        if self.residual and keep is not None:
+            x = x * keep / self.survival_prob + inputs
         return x
 
 
@@ -167,7 +191,7 @@ class EfficientNet(nn.Module):
         """``generator``: where stochastic depth draws its masks in training
         (torch's default generator of the device when None)."""
         masks = self.keep_masks(x.shape[0], x.device, generator)
-        x = F.silu(self.stem_bn(self.stem_conv(x)))
+        x = _conv_bn(self.stem_conv, self.stem_bn, x, True)
         taps = {}
         for name in self.block_names:
             block = getattr(self, name)
