@@ -41,6 +41,7 @@ from .models.detector import (
     efficientdet_d5,
     efficientdet_d6,
     efficientdet_d7,
+    efficientdet_d7x,
     fuse_for_inference,
     make_predict_fn,
     predict_pipeline,
@@ -70,4 +71,4 @@ __all__ = [
     "DeviceDataCache", "PascalVocDataset", "batch_iterator", "CocoEvaluator", "evaluate_coco",
     "evaluate_voc", "load_exported", "save_exported", "make_mesh", "make_sharded_predict_fn",
     "make_sharded_train_step", "make_spatial_predict_fn", "make_spatial_train_step",
-] + [f"efficientdet_d{i}" for i in range(8)]
+] + [f"efficientdet_d{i}" for i in range(8)] + ["efficientdet_d7x"]

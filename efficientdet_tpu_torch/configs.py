@@ -100,24 +100,33 @@ class AnchorConfig:
 
 
 # phi -> (image_size, backbone, bifpn_width, bifpn_depth, head_depth,
-#         anchor_scale)
+#         anchor_scale, max_level, weighted fusion by default); "7x" is
+# automl's efficientdet-d7x (arXiv 1911.09070 Table 2), the one phi whose
+# pyramid reaches P8. D6, D7 and D7x fuse by unweighted sum.
 _PHI_CONFIGS = {
-    0: (512, "efficientnet-b0", 64, 3, 3, 4.0),
-    1: (640, "efficientnet-b1", 88, 4, 3, 4.0),
-    2: (768, "efficientnet-b2", 112, 5, 3, 4.0),
-    3: (896, "efficientnet-b3", 160, 6, 4, 4.0),
-    4: (1024, "efficientnet-b4", 224, 7, 4, 4.0),
-    5: (1280, "efficientnet-b5", 288, 7, 4, 4.0),
-    6: (1280, "efficientnet-b6", 384, 8, 5, 4.0),
-    7: (1536, "efficientnet-b6", 384, 8, 5, 5.0),
+    0: (512, "efficientnet-b0", 64, 3, 3, 4.0, 7, True),
+    1: (640, "efficientnet-b1", 88, 4, 3, 4.0, 7, True),
+    2: (768, "efficientnet-b2", 112, 5, 3, 4.0, 7, True),
+    3: (896, "efficientnet-b3", 160, 6, 4, 4.0, 7, True),
+    4: (1024, "efficientnet-b4", 224, 7, 4, 4.0, 7, True),
+    5: (1280, "efficientnet-b5", 288, 7, 4, 4.0, 7, True),
+    6: (1280, "efficientnet-b6", 384, 8, 5, 4.0, 7, False),
+    7: (1536, "efficientnet-b6", 384, 8, 5, 5.0, 7, False),
+    "7x": (1536, "efficientnet-b7", 384, 8, 5, 4.0, 8, False),
 }
+PHIS = tuple(_PHI_CONFIGS)
+
+
+def parse_phi(text: str) -> int | str:
+    """A phi as a command line gives it: ``"0"``..``"7"`` as an int, ``"7x"`` as is."""
+    return text if text == "7x" else int(text)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Full detector configuration for one phi (D0..D7)."""
+    """Full detector configuration for one phi (D0..D7, D7x)."""
 
-    phi: int
+    phi: int | str  # 0..7, or "7x"
     image_size: int
     backbone: str
     bifpn_width: int
@@ -145,27 +154,29 @@ class ModelConfig:
     @classmethod
     def for_phi(
         cls,
-        phi: int,
+        phi: int | str,
         num_classes: int = 90,
         weighted_bifpn: bool | None = None,
         freeze_bn: bool = False,
         image_size: int | None = None,
     ) -> "ModelConfig":
-        """Build the per-phi config.
+        """Build the per-phi config: ``phi`` 0..7, or ``"7x"`` for D7x (B7,
+        BiFPN 384 x 8 over P3..P8, anchor strides 8..256).
 
         ``weighted_bifpn=None`` gives fast-normalised weighted fusion for
-        D0-D5 and unweighted sum fusion for D6/D7.
+        D0-D5 and unweighted sum fusion for D6, D7 and D7x.
         """
-        if phi not in _PHI_CONFIGS:
-            raise ValueError(f"phi must be in 0..7, got {phi}")
-        size, backbone, w, d, hd, anchor_scale = _PHI_CONFIGS[phi]
+        if phi not in _PHI_CONFIGS or isinstance(phi, bool):
+            raise ValueError(f"phi must be in 0..7 or '7x', got {phi!r}")
+        size, backbone, w, d, hd, anchor_scale, max_level, weighted = _PHI_CONFIGS[phi]
         if weighted_bifpn is None:
-            weighted_bifpn = phi < 6
+            weighted_bifpn = weighted
         if image_size is not None:
             size = image_size
-        if size % 128 != 0:
+        if size % 2 ** max_level != 0:
             raise ValueError(
-                f"image_size must be divisible by 128 (stride of P7), got {size}"
+                f"image_size must be divisible by {2 ** max_level} "
+                f"(stride of P{max_level}), got {size}"
             )
         return cls(
             phi=phi,
@@ -177,7 +188,11 @@ class ModelConfig:
             num_classes=num_classes,
             weighted_bifpn=weighted_bifpn,
             freeze_bn=freeze_bn,
-            anchor=AnchorConfig(anchor_scale=anchor_scale),
+            max_level=max_level,
+            anchor=AnchorConfig(
+                strides=tuple(2 ** lvl for lvl in range(3, max_level + 1)),
+                anchor_scale=anchor_scale,
+            ),
         )
 
     @property
@@ -189,7 +204,7 @@ class ModelConfig:
         return self.anchor.num_anchors_per_cell
 
     def feature_shapes(self, image_size: int | None = None):
-        """(H, W) of P3..P7 for a square input."""
+        """(H, W) of each level, P3 up to ``max_level``, for a square input."""
         size = image_size or self.image_size
         return [
             (size // (2 ** lvl), size // (2 ** lvl))

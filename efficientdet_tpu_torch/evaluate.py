@@ -27,6 +27,8 @@ import os
 
 
 def parse_args(argv=None):
+    from .configs import PHIS, parse_phi
+
     p = argparse.ArgumentParser(prog="efficientdet_tpu_torch.evaluate",
                                 description="Evaluate a checkpoint: COCO AP or VOC-style mAP.")
     sub = p.add_subparsers(dest="dataset_type", required=True)
@@ -46,10 +48,10 @@ def parse_args(argv=None):
     for q in (coco, pascal, csv_):
         q.add_argument("--snapshot", required=True,
                        help="checkpoint directory (train.py --snapshot-path)")
-        q.add_argument("--phi", type=int, default=0, choices=range(8))
+        q.add_argument("--phi", type=parse_phi, default=0, choices=PHIS)
         q.add_argument("--weighted-bifpn", action="store_true", default=None,
                        help="force weighted fusion (default: per-phi — "
-                            "weighted for D0-D5, unweighted for D6/D7)")
+                            "weighted for D0-D5, unweighted for D6, D7, D7x)")
         q.add_argument("--no-weighted-bifpn", dest="weighted_bifpn", action="store_false")
         q.add_argument("--image-size", type=int, default=None)
         q.add_argument("--batch-size", type=int, default=8)

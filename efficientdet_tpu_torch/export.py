@@ -49,6 +49,8 @@ import zipfile
 
 import torch
 
+from .configs import parse_phi
+
 FORMAT_VERSION = 1
 _PROGRAM_NAME = "program.pt2"
 _JAX_PROGRAM_NAME = "program.stablehlo"
@@ -244,7 +246,7 @@ def parse_args(argv=None):
                                 description="Export a one-file AOT serving artifact (.edz)")
     p.add_argument("--out", required=True, help="output artifact path")
     p.add_argument("--snapshot", help="checkpoint dir written by train.py")
-    p.add_argument("--phi", type=int, default=None, help="D0..D7 (no snapshot)")
+    p.add_argument("--phi", type=parse_phi, default=None, help="D0..D7 or D7x (no snapshot)")
     p.add_argument("--num-classes", type=int, default=90)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--image-size", type=int, default=None)
@@ -279,7 +281,7 @@ def main(argv=None):
         # neither --phi nor a snapshot's train_config.json gave the model
         # scale: a usable CLI error, not a KeyError inside ModelConfig.for_phi
         raise SystemExit(
-            "error: no model scale: pass --phi 0..7, or --snapshot with a "
+            "error: no model scale: pass --phi 0..7 or 7x, or --snapshot with a "
             "train_config.json that records phi"
             + (f" ({args.snapshot}/train_config.json is missing or has no "
                "model.phi)" if args.snapshot else "")

@@ -1,33 +1,69 @@
-"""BiFPN with fast-normalised weighted fusion, NCHW.
+"""BiFPN with fast-normalised weighted fusion, NCHW, over P3 up to any max level.
 
-Counterpart of the JAX package's ``models/bifpn.py``. Per layer (paper
-Fig. 2): the first layer builds P3..P5 from 1x1 conv+BN of C3..C5 (P4/P5 get
-separate convs for the top-down node and the bottom-up skip), P6 = maxpool
-of conv+BN(C5), P7 = maxpool of P6; then
+Counterpart of the JAX package's ``models/bifpn.py``, generalised from P3..P7
+to P3..P``max_level`` as google/automl's ``bifpn_config(min_level,
+max_level)`` builds the graph. Per layer (paper Fig. 2): the first layer
+builds P3..P5 from 1x1 conv+BN of C3..C5 (P4/P5 get separate convs for the
+top-down node and the bottom-up skip), P6 = maxpool of conv+BN(C5), and each
+level above P6 is a maxpool of the one below; then
 
-  top-down:  P6td = F(P6, up(P7)) ... P3out = F(P3, up(P4td))
-  bottom-up: P4out = F(P4, P4td, down(P3out)) ... P7out = F(P7, down(P6out))
+  top-down:  one node a level from P(max-1) down to P3, each fusing its
+             level's last node and the upsampled node of the level above
+             (P6td = F(P6, up(P7)) ... P3out = F(P3, up(P4td)) for P3..P7)
+  bottom-up: one node a level from P4 up to P(max), each fusing all its
+             level's nodes so far and the max-pooled output of the level
+             below (P4out = F(P4, P4td, down(P3out)) ... P7out = F(P7,
+             down(P6out)) for P3..P7)
 
 with F = relu-weighted fusion (eps 1e-4; each ``w_i / norm`` is cast to the
-input dtype) -> swish -> SeparableConv 3x3 -> BN. ``weighted=False`` (D6/D7)
-sums the inputs instead. With ``remat`` each layer is recomputed in the
-backward pass (models/remat.py).
+input dtype) -> swish -> SeparableConv 3x3 -> BN. ``weighted=False`` (D6,
+D7, D7x) sums the inputs instead. The node plan (:func:`node_plan`) is made
+once a layer; for P3..P7 it gives the eight nodes, names and order of the
+five-level BiFPN, so D0..D7 weights load unchanged. With ``remat`` each
+layer is recomputed in the backward pass (models/remat.py).
+
+Spans (``utils/profiling.span``): ``bifpn.fuse`` around each node's sum and
+swish, ``bifpn.resample`` around each upsample and max-pool between levels.
+:func:`fuse` counts the nodes it runs in ``fuse.sum`` and ``fuse.weighted``.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resample import downsample_maxpool, upsample_to
+from ..utils.profiling import span
 from .conv import Conv2d, SeparableConv
 from .normalization import TpuBatchNorm
 from .remat import remat as _remat
 
 FUSION_EPS = 1e-4
+
+
+def fuse(inputs: Sequence[torch.Tensor], weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One node's fusion and swish: the inputs summed, relu-weighted with
+    fast normalisation where ``weights`` is given."""
+    if weights is None:
+        fuse.sum += 1
+        x = inputs[0]
+        for t in inputs[1:]:
+            x = x + t
+    else:
+        fuse.weighted += 1
+        w = F.relu(weights)
+        w = (w / (w.sum() + FUSION_EPS)).to(inputs[0].dtype)
+        x = w[0] * inputs[0]
+        for i in range(1, len(inputs)):
+            x = x + w[i] * inputs[i]
+    return F.silu(x)
+
+
+fuse.sum = 0
+fuse.weighted = 0
 
 
 class FusedNode(nn.Module):
@@ -46,33 +82,41 @@ class FusedNode(nn.Module):
     def forward(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
         if len(inputs) != self.num_inputs:
             raise ValueError(f"expected {self.num_inputs} inputs, got {len(inputs)}")
-        if self.weighted:
-            w = F.relu(self.fusion_weights)
-            w = (w / (w.sum() + FUSION_EPS)).to(inputs[0].dtype)
-            x = w[0] * inputs[0]
-            for i in range(1, self.num_inputs):
-                x = x + w[i] * inputs[i]
-        else:
-            x = inputs[0]
-            for t in inputs[1:]:
-                x = x + t
-        return self.bn(self.conv(F.silu(x)))
+        with span("bifpn.fuse"):
+            x = fuse(inputs, self.fusion_weights if self.weighted else None)
+        return self.bn(self.conv(x))
 
 
-_NODES = (  # name, number of inputs, in the order the layer runs them
-    ("p6_td", 2), ("p5_td", 2), ("p4_td", 2), ("p3_out", 2),
-    ("p4_out", 3), ("p5_out", 3), ("p6_out", 3), ("p7_out", 2),
-)
+def node_plan(min_level: int = 3, max_level: int = 7) -> Tuple[Tuple[str, int, Tuple[int, ...]], ...]:
+    """automl's ``bifpn_config``: (name, level, inputs) of each fusion node,
+    in the order a layer runs them. The graph numbers the input levels
+    P``min_level``..P``max_level`` 0..L-1 and each node from L on; a node's
+    last input is resampled to its level (upsampled on the top-down path,
+    max-pooled on the bottom-up one)."""
+    n = max_level - min_level + 1
+    ids = {lvl: [lvl - min_level] for lvl in range(min_level, max_level + 1)}
+    plan = []
+    for lvl in range(max_level - 1, min_level - 1, -1):
+        name = f"p{lvl}_out" if lvl == min_level else f"p{lvl}_td"
+        plan.append((name, lvl, (ids[lvl][-1], ids[lvl + 1][-1])))
+        ids[lvl].append(n + len(plan) - 1)
+    for lvl in range(min_level + 1, max_level + 1):
+        plan.append((f"p{lvl}_out", lvl, tuple(ids[lvl]) + (ids[lvl - 1][-1],)))
+        ids[lvl].append(n + len(plan) - 1)
+    return tuple(plan)
 
 
 class BiFPNLayer(nn.Module):
-    """One bidirectional pass over P3..P7."""
+    """One bidirectional pass over P3..P``max_level``."""
 
     def __init__(self, features: int, first: bool, in_channels=None,
                  weighted: bool = True, bn_epsilon: float = 1e-3,
-                 fuse_bn: bool = False):
+                 fuse_bn: bool = False, max_level: int = 7):
         super().__init__()
+        if max_level < 6:
+            raise ValueError(f"the BiFPN needs P3..P6 at least, got max_level {max_level}")
         self.first = first
+        self.num_levels = n = max_level - 2
         if first:
             c3, c4, c5 = in_channels
             for name, ch in (("p3_in", c3), ("p4_in_td", c4), ("p4_in_bu", c4),
@@ -82,8 +126,25 @@ class BiFPNLayer(nn.Module):
                     f"{name}_bn",
                     nn.Identity() if fuse_bn else TpuBatchNorm(features, bn_epsilon),
                 )
-        for name, n in _NODES:
-            self.add_module(name, FusedNode(features, n, weighted, bn_epsilon, fuse_bn))
+        plan = node_plan(3, max_level)
+        # the first layer's graph holds the bottom-up skips of P4 and P5
+        # (their own 1x1 convs) after the input levels, so its nodes start
+        # two places later
+        extra = 2 if first else 0
+        bu_skip = {4: n, 5: n + 1} if first else {}
+        steps = []
+        for j, (name, level, ids) in enumerate(plan):
+            node = FusedNode(features, len(ids), weighted, bn_epsilon, fuse_bn)
+            self.add_module(name, node)
+            ids = tuple(i if i < n else i + extra for i in ids)
+            top_down = j < n - 1
+            if not top_down and level in bu_skip:
+                ids = (bu_skip[level],) + ids[1:]
+            # (node, inputs taken as they are, the input resampled, the
+            # input whose shape an upsample takes, upsample or max-pool)
+            steps.append((node, ids[:-1], ids[-1], ids[0], top_down))
+        self._steps = tuple(steps)
+        self._out = n + extra + n - 2  # the graph's index of P3's output
 
     def _conv_bn(self, x, name):
         return getattr(self, f"{name}_bn")(getattr(self, f"{name}_conv")(x))
@@ -91,38 +152,35 @@ class BiFPNLayer(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         if self.first:
             c3, c4, c5 = feats
-            p3_in = self._conv_bn(c3, "p3_in")
-            p4_in_td = self._conv_bn(c4, "p4_in_td")
+            graph = [self._conv_bn(c3, "p3_in"), self._conv_bn(c4, "p4_in_td")]
             p4_in_bu = self._conv_bn(c4, "p4_in_bu")
-            p5_in_td = self._conv_bn(c5, "p5_in_td")
+            graph.append(self._conv_bn(c5, "p5_in_td"))
             p5_in_bu = self._conv_bn(c5, "p5_in_bu")
-            p6_in = downsample_maxpool(self._conv_bn(c5, "p6_in"))
-            p7_in = downsample_maxpool(p6_in)
+            x = self._conv_bn(c5, "p6_in")
+            for _ in range(self.num_levels - 3):
+                with span("bifpn.resample"):
+                    x = downsample_maxpool(x)
+                graph.append(x)
+            graph += (p4_in_bu, p5_in_bu)
         else:
-            p3_in, p4_in_td, p5_in_td, p6_in, p7_in = feats
-            p4_in_bu, p5_in_bu = p4_in_td, p5_in_td
-
-        def up(x, like):
-            return upsample_to(x, like.shape[-2], like.shape[-1])
-
-        down = downsample_maxpool
-        p6_td = self.p6_td([p6_in, up(p7_in, p6_in)])
-        p5_td = self.p5_td([p5_in_td, up(p6_td, p5_in_td)])
-        p4_td = self.p4_td([p4_in_td, up(p5_td, p4_in_td)])
-        p3_out = self.p3_out([p3_in, up(p4_td, p3_in)])
-        p4_out = self.p4_out([p4_in_bu, p4_td, down(p3_out)])
-        p5_out = self.p5_out([p5_in_bu, p5_td, down(p4_out)])
-        p6_out = self.p6_out([p6_in, p6_td, down(p5_out)])
-        p7_out = self.p7_out([p7_in, down(p6_out)])
-        return [p3_out, p4_out, p5_out, p6_out, p7_out]
+            graph = list(feats)
+        for node, kept, src, like, top_down in self._steps:
+            with span("bifpn.resample"):
+                if top_down:
+                    ref = graph[like]
+                    moved = upsample_to(graph[src], ref.shape[-2], ref.shape[-1])
+                else:
+                    moved = downsample_maxpool(graph[src])
+            graph.append(node([graph[i] for i in kept] + [moved]))
+        return graph[self._out:]
 
 
 class BiFPN(nn.Module):
-    """Stack of ``depth`` BiFPN layers: (C3, C4, C5) -> [P3..P7]."""
+    """Stack of ``depth`` BiFPN layers: (C3, C4, C5) -> [P3..P``max_level``]."""
 
     def __init__(self, features: int, depth: int, in_channels,
                  weighted: bool = True, bn_epsilon: float = 1e-3,
-                 fuse_bn: bool = False, remat: bool = False):
+                 fuse_bn: bool = False, remat: bool = False, max_level: int = 7):
         super().__init__()
         self.depth = depth
         self.remat = remat
@@ -130,6 +188,7 @@ class BiFPN(nn.Module):
             self.add_module(f"layer{i}", BiFPNLayer(
                 features, first=(i == 0), in_channels=in_channels,
                 weighted=weighted, bn_epsilon=bn_epsilon, fuse_bn=fuse_bn,
+                max_level=max_level,
             ))
 
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:

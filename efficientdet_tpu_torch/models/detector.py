@@ -82,7 +82,7 @@ class EfficientDet(nn.Module):
                                      remat_backbone, config.remat_max_stage)
         self.bifpn = BiFPN(
             config.bifpn_width, config.bifpn_depth, _tap_channels(config.backbone),
-            config.weighted_bifpn, eps, fuse_bn, remat_fpn,
+            config.weighted_bifpn, eps, fuse_bn, remat_fpn, config.max_level,
         )
         a, levels = config.num_anchors_per_cell, config.num_levels
         self.class_net = ClassNet(
@@ -115,7 +115,7 @@ class EfficientDet(nn.Module):
         return self._anchor_cache[key]
 
     def features(self, images: torch.Tensor, generator: torch.Generator | None = None):
-        """(B, S, S, 3) normalised -> BiFPN outputs [P3..P7], NCHW."""
+        """(B, S, S, 3) normalised -> BiFPN outputs [P3..P``max_level``], NCHW."""
         with stage("backbone"):
             x = images.to(self.dtype).permute(0, 3, 1, 2)
             taps = list(self.backbone(x, generator))
@@ -174,7 +174,7 @@ def init_weights(model: EfficientDet, seed: int = 0) -> EfficientDet:
 
 
 def build_efficientdet(
-    phi: int,
+    phi: int | str,
     num_classes: int = 90,
     weighted_bifpn: bool | None = None,
     freeze_bn: bool = False,
@@ -219,6 +219,7 @@ efficientdet_d4 = _named_builder(4)
 efficientdet_d5 = _named_builder(5)
 efficientdet_d6 = _named_builder(6)
 efficientdet_d7 = _named_builder(7)
+efficientdet_d7x = _named_builder("7x")
 
 
 @torch.inference_mode()

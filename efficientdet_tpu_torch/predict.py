@@ -38,7 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .configs import EvalConfig
+from .configs import PHIS, EvalConfig, parse_phi
 from .models.detector import build_efficientdet
 from .ops.nms import filter_detections_from_logits
 from .ops.preprocess import preprocess_image
@@ -192,7 +192,7 @@ class Predictor:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="EfficientDet inference demo.")
-    p.add_argument("--phi", type=int, default=0, choices=range(8))
+    p.add_argument("--phi", type=parse_phi, default=0, choices=PHIS)
     p.add_argument("--checkpoint", default=None,
                    help="a save_params file or a CheckpointManager directory")
     p.add_argument("--image", required=True)

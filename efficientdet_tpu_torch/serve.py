@@ -47,7 +47,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .configs import EvalConfig
+from .configs import PHIS, EvalConfig, parse_phi
 from .data.common import letterbox_hostside
 from .models.detector import predict_pipeline, resolve_device
 from .utils.cuda_graph import GraphedCall
@@ -543,7 +543,7 @@ def main(argv=None):
                    help="serve from a one-file .edz export artifact (export.py); "
                    "--phi/--checkpoint/--num-classes/--batch-size/--score-threshold "
                    "then come from the artifact's manifest and may not be given")
-    p.add_argument("--phi", type=int, default=0, choices=range(8))
+    p.add_argument("--phi", type=parse_phi, default=0, choices=PHIS)
     p.add_argument("--checkpoint", default=None, help="a save_params file")
     p.add_argument("--num-classes", type=int, default=90)
     p.add_argument("--port", type=int, default=8000)

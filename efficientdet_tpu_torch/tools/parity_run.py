@@ -30,18 +30,20 @@ import dataclasses
 import json
 
 # EfficientDet paper Table 2 (arXiv 1911.09070), COCO test-dev AP: the JAX
-# drill's figures
+# drill's figures, and D7x's
 PAPER_AP = {0: 34.6, 1: 40.5, 2: 43.0, 3: 47.5, 4: 49.7, 5: 51.5,
-            6: 52.6, 7: 53.7}
+            6: 52.6, 7: 53.7, "7x": 55.1}
 
 
 def parse_args(argv=None):
+    from ..configs import PHIS, parse_phi
+
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--weights", required=True,
                    help=".npz archive of {tf_name: array} official weights")
     p.add_argument("--coco-path", required=True)
     p.add_argument("--set", dest="eval_set", default="val2017")
-    p.add_argument("--phi", type=int, default=0, choices=range(8))
+    p.add_argument("--phi", type=parse_phi, default=0, choices=PHIS)
     p.add_argument("--num-classes", type=int, default=90,
                    help="automl checkpoints are 90-class")
     p.add_argument("--weighted-bifpn", action="store_true", default=None)

@@ -45,6 +45,8 @@ import torch
 
 
 def parse_args(argv=None):
+    from .configs import PHIS, parse_phi
+
     p = argparse.ArgumentParser(prog="efficientdet_tpu_torch.train",
                                 description="Train an EfficientDet model (PyTorch, one GPU).")
     sub = p.add_subparsers(dest="dataset_type", required=True)
@@ -65,10 +67,10 @@ def parse_args(argv=None):
     csv_.add_argument("--val-annotations-path")
 
     for q in (coco, pascal, csv_):
-        q.add_argument("--phi", type=int, default=0, choices=range(8))
+        q.add_argument("--phi", type=parse_phi, default=0, choices=PHIS)
         q.add_argument("--weighted-bifpn", action="store_true", default=None,
                        help="force weighted fusion (default: per-phi — "
-                            "weighted for D0-D5, unweighted for D6/D7)")
+                            "weighted for D0-D5, unweighted for D6, D7, D7x)")
         q.add_argument("--no-weighted-bifpn", dest="weighted_bifpn", action="store_false")
         q.add_argument("--freeze-backbone", action="store_true")
         q.add_argument("--freeze-bn", action="store_true")

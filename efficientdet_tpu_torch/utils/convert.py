@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..configs import EFFICIENTNET_B0_BLOCKS, EFFICIENTNET_PARAMS, round_repeats
+from ..models.bifpn import node_plan
 from .fold_bn import _flatten
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
@@ -191,19 +192,23 @@ def head_name_map(head: str, depth: int, num_levels: int = 5,
     return m
 
 
-def bifpn_name_map(depth: int, weighted: bool = True,
-                   bifpn_key: str = "bifpn") -> Dict[str, Union[str, Tuple[str, ...]]]:
+def bifpn_name_map(depth: int, weighted: bool = True, bifpn_key: str = "bifpn",
+                   min_level: int = 3,
+                   max_level: int = 7) -> Dict[str, Union[str, Tuple[str, ...]]]:
     """{flax path: TF name, or a tuple of them} for the BiFPN (automl's
-    ``fpn_cells`` scheme).
+    ``fpn_cells`` scheme) over P``min_level``..P``max_level``.
 
-    automl numbers the input features P3..P7 as graph nodes 0..4; each
-    cell's eight new nodes are 5..12 in build order P6td, P5td, P4td, P3out,
-    P4out, P5out, P6out, P7out: ``fnode{j}``, its conv and BN under
-    ``op_after_combine{j+5}``. The fast-fusion weights are per-input
-    SCALARS ``WSM``, ``WSM_1``, ``WSM_2``: a node's vector maps onto a TUPLE
-    of names (stacked on import, split on export). The first cell's
-    channel-matching 1x1 convs are ``fnode{j}/resample_0_{src}_{dst}``; the
-    P6 conv is the top-level ``resample_p6``.
+    automl numbers the L input features as graph nodes 0..L-1 (P3..P7:
+    0..4) and each cell's new nodes from L on, in the order of
+    ``models/bifpn.node_plan`` (P3..P7: 5..12 for P6td, P5td, P4td, P3out,
+    P4out, P5out, P6out, P7out; P3..P8: 6..15 for P7td ... P8out): node j
+    is ``fnode{j}``, its conv and BN under ``op_after_combine{j+L}``. The
+    fast-fusion weights are per-input SCALARS ``WSM``, ``WSM_1``, ...: a
+    node's vector maps onto a TUPLE of names (stacked on import, split on
+    export). The first cell's channel-matching 1x1 convs are
+    ``fnode{j}/resample_0_{src}_{j+L}`` of the node j that takes backbone
+    level ``src`` (C3..C5: 0..2) first; the P6 conv is the top-level
+    ``resample_p6`` (the levels above it are max-pools, with no variables).
     """
     m: Dict[str, Union[str, Tuple[str, ...]]] = {}
 
@@ -218,25 +223,27 @@ def bifpn_name_map(depth: int, weighted: bool = True,
         m[f"params/{ours}/bias"] = f"{tf}/bias"
 
     root = bifpn_key
-    # the first cell's input resamples: (ours, fnode j, source node, destination node)
-    for ours, j, src, dst in (("p5_in_td", 1, 2, 6), ("p4_in_td", 2, 1, 7), ("p3_in", 3, 0, 8),
-                              ("p4_in_bu", 4, 1, 9), ("p5_in_bu", 5, 2, 10)):
-        tf = f"fpn_cells/cell_0/fnode{j}/resample_0_{src}_{dst}"
+    plan = node_plan(min_level, max_level)
+    n = max_level - min_level + 1
+    j_of = {name: j for j, (name, _, _) in enumerate(plan)}
+    # the first cell's input resamples: (ours, the node that takes it, source node)
+    for ours, node, src in (("p5_in_td", "p5_td", 2), ("p4_in_td", "p4_td", 1),
+                            ("p3_in", "p3_out", 0), ("p4_in_bu", "p4_out", 1),
+                            ("p5_in_bu", "p5_out", 2)):
+        j = j_of[node]
+        tf = f"fpn_cells/cell_0/fnode{j}/resample_0_{src}_{j + n}"
         conv2d(f"{root}/layer0/{ours}_conv", f"{tf}/conv2d")
         bn(f"{root}/layer0/{ours}_bn", f"{tf}/bn")
     conv2d(f"{root}/layer0/p6_in_conv", "resample_p6/conv2d")
     bn(f"{root}/layer0/p6_in_bn", "resample_p6/bn")
-    # (our node, fnode j, fusion inputs)
-    nodes = (("p6_td", 0, 2), ("p5_td", 1, 2), ("p4_td", 2, 2), ("p3_out", 3, 2),
-             ("p4_out", 4, 3), ("p5_out", 5, 3), ("p6_out", 6, 3), ("p7_out", 7, 2))
     for cell in range(depth):
-        for ours, j, n_in in nodes:
+        for j, (ours, _, inputs) in enumerate(plan):
             node = f"{root}/layer{cell}/{ours}"
             tf_node = f"fpn_cells/cell_{cell}/fnode{j}"
-            oac = f"{tf_node}/op_after_combine{j + 5}"
+            oac = f"{tf_node}/op_after_combine{j + n}"
             if weighted:
                 m[f"params/{node}/fusion_weights"] = tuple(
-                    f"{tf_node}/WSM" + (f"_{i}" if i else "") for i in range(n_in))
+                    f"{tf_node}/WSM" + (f"_{i}" if i else "") for i in range(len(inputs)))
             m[f"params/{node}/conv/depthwise/kernel"] = f"{oac}/conv/depthwise_kernel"
             m[f"params/{node}/conv/pointwise/kernel"] = f"{oac}/conv/pointwise_kernel"
             m[f"params/{node}/conv/pointwise/bias"] = f"{oac}/conv/bias"
@@ -253,9 +260,10 @@ def detector_name_map(config) -> Dict[str, Union[str, Tuple[str, ...]]]:
     for ours, tf in backbone_name_map(config.backbone).items():
         coll, path = ours.split("/", 1)
         m[f"{coll}/backbone/{path}"] = tf
-    m.update(bifpn_name_map(config.bifpn_depth, config.weighted_bifpn))
-    m.update(head_name_map("class", config.head_depth, config.num_levels))
-    m.update(head_name_map("box", config.head_depth, config.num_levels))
+    m.update(bifpn_name_map(config.bifpn_depth, config.weighted_bifpn,
+                            min_level=config.min_level, max_level=config.max_level))
+    m.update(head_name_map("class", config.head_depth, config.num_levels, config.min_level))
+    m.update(head_name_map("box", config.head_depth, config.num_levels, config.min_level))
     return m
 
 

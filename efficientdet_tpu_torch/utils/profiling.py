@@ -9,11 +9,12 @@
   tree puts on every XLA op; the models, the prediction and the training
   step open them), ``span(name)`` one of the finer :data:`SPANS` (a
   training step or a prediction call as a whole, the backward pass, the
-  loss's targets, focal and Huber terms), and :func:`backward_span` marks a
+  loss's targets, focal and Huber terms, a BiFPN node's fusion and each
+  resample between its levels), and :func:`backward_span` marks a
   stretch of a backward pass between two gradient hooks. Spans are recorded
   while a ``torch.profiler`` session records in the process, or inside
-  :func:`record_spans`; then each opens a ``record_function`` range and is
-  kept in memory (:class:`SpanRecorder`). Otherwise a span is a
+  :func:`record_spans`; then each is kept in memory (:class:`SpanRecorder`),
+  and each with a range name opens a ``record_function`` range. Otherwise a span is a
   ``nullcontext`` and costs one check.
 * :func:`summary` and :func:`export`: the kept spans, per name or one JSON
   line each; :func:`clear` forgets them.
@@ -55,13 +56,17 @@ RANGE_NAMES = {"preprocess": "preprocess", "backbone": "backbone", "bifpn": "bif
                "loss": "loss/anchor_targets+focal+huber", "optimizer": "optimizer/adam"}
 STAGES = tuple(RANGE_NAMES)
 
-# The finer spans, each with its range name. No range name opens a stage:
+# The finer spans, each with its range name, or None for a span that opens
+# no range. The BiFPN's spans open none: a D0 call opens 50 of them, their
+# ranges would cost a traced call more host time than the device spends in
+# them, and no reader of a trace needs them. No range name opens a stage:
 # not by stage_of_range (nor portbench's copy of it), nor by the JAX tool's
 # patterns, which would read "focal" or "huber" as its loss stage. So a
 # trace's stage table is the same with these ranges as without them.
 SPAN_RANGES = {"step": "step", "predict": "predict", "backward": "backward",
                "loss.targets": "loss.targets", "loss.focal": "loss.cls_term",
-               "loss.huber": "loss.box_term"}
+               "loss.huber": "loss.box_term", "bifpn.fuse": None,
+               "bifpn.resample": None}
 SPANS = tuple(SPAN_RANGES)
 
 # the spans a recorder keeps; those that close past it are counted and dropped
@@ -78,6 +83,22 @@ def stage_of_range(name: str) -> Optional[str]:
 # off inside stages_off(), for its thread or task alone
 _stages_on: contextvars.ContextVar = contextvars.ContextVar("stages_on", default=True)
 _OFF = contextlib.nullcontext()
+
+
+# a Stream object for each (stream id, device index, device type)
+_STREAMS: Dict[tuple, Any] = {}
+
+
+def _current_stream():
+    """``torch.cuda.current_stream()``, its Stream object made once: making
+    one for each event, as that function does, takes the host longer than
+    recording the event."""
+    key = torch._C._cuda_getCurrentStream(torch._C._cuda_getDevice())
+    stream = _STREAMS.get(key)
+    if stream is None:
+        stream = _STREAMS[key] = torch.cuda.Stream(
+            stream_id=key[0], device_index=key[1], device_type=key[2])
+    return stream
 
 
 class _Span:
@@ -151,11 +172,12 @@ class SpanRecorder:
         is recorded (no CUDA, or a graph being captured)."""
         if not torch.cuda.is_initialized() or torch.cuda.is_current_stream_capturing():
             return None
+        stream = _current_stream()
         with self._lock:
             ev = self._free_events.pop() if self._free_events else None
         if ev is None:
             ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
+        ev.record(stream)
         return ev
 
     def _release(self, *events) -> None:
