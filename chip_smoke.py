@@ -35,8 +35,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    kernel's layout; its time at B=128 (ms and device_ms, as for the head);
 4. pipeline: D0@512 (90 classes, random weights from seed 0), BN folded,
    three bf16 calls at batch 16 through make_predict_fn with the launch
-   counters reset just before (2 head, 1 NMS and 48 conv epilogue launches
-   a call, 4 of them padded); the detections checked; then img/s at
+   counters reset just before (2 head, 1 NMS, 32 conv epilogue launches
+   a call, 4 of them padded, and 16 depthwise launches); the detections
+   checked; then img/s at
    batch 128 bf16; the "pixel_gather" front end at batch 16 (one NMS launch
    a call) against "concat" on the same head outputs, and its img/s at
    batch 128;
@@ -65,9 +66,21 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    silu, add and pad) on the inputs of every epilogue call of a folded
    D0@512 backbone forward (experiments/conv_epilogue.py): float32 at batch
    16 bit for bit, bf16 at batch 128 within one ulp of the twin run in
-   float32 and rounded once; 48 calls a forward, 4 of them padded; then at
+   float32 and rounded once; 32 calls a forward, 4 of them padded; then at
    those batch-128 shapes the launch's ms, the kernel's device ms, the
    twin's ms and the bound of its bytes;
+9b. depthwise_conv: csrc/depthwise_conv.cu against its twin (cuDNN's
+   depthwise conv in float32, bias and SiLU; the SE sums against the
+   kernel's own outputs summed by ATen) on the inputs of every depthwise
+   call of a folded backbone forward (experiments/depthwise_conv.py):
+   D0@512 in float32 at batch 16 within the stated bound, D0@512 b128,
+   D4@1024 b64 (its 2.43e9-element stage-2 input included) and D7x@1536
+   b16 in bf16, at the benchmark's batches, within it and within one ulp
+   of the twin rounded once; 16, 32 and 55
+   launches a forward, 32, 63 and 107 epilogue launches; then at the
+   benchmark's batches each call's ms, the kernel's device ms, cuDNN's
+   conv and the epilogue after it (library_ms), the SE's mean, and the
+   bound of its bytes;
 10. predictor: Predictor(phi=0) in f32 and bf16 at five source shapes
    (480x640, 640x480, 512x512, 1080x1920, 300x200): each shape's CUDA graph
    replay equal to the eager call on two images, ms per image (median of
@@ -275,7 +288,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # 1 compare; the areas (per box) are not counted
 NMS_OPS_PER_PAIR = 14
 
-SOURCES = ["head_pointwise", "nms_suppress", "fused_mbconv", "tap_floor", "conv_epilogue"]
+SOURCES = ["head_pointwise", "nms_suppress", "fused_mbconv", "tap_floor", "conv_epilogue",
+           "depthwise_conv"]
 D0_PIXELS = 64 * 64 + 32 * 32 + 16 * 16 + 8 * 8 + 4 * 4  # pixel rows per image at 512
 # the JAX tests' tiny MBConv cases (name, batch, side, cin, cexp, cout, k, se)
 MBCONV_TINY = [("tiny_exp_skip", 2, 16, 8, 48, 8, 3, 2),
@@ -297,6 +311,10 @@ MBCONV_EDGES = [("hw20_cin24_skip", 1, 20, 24, 144, 24, 3, 4),
 MBCONV_STEPS = 10  # timed calls per kernel and block (the plain version: a fifth)
 CHAIN_STEPS = 10
 EPILOGUE_STEPS = 10  # timed launches a shape (the twin: a fourth)
+# the depthwise kernel's phase: (phi, batch), the benchmark's inference
+# cells, each checked and timed at its batch
+DEPTHWISE_CELLS = ((0, 128), (4, 64), ("7x", 16))
+DEPTHWISE_STEPS = 10
 FLOOR_REPEATS = 512
 FLOOR_STEPS = 10
 CHECK_BATCH = 16   # the kernels against their plain versions; the main-path calls
@@ -354,7 +372,7 @@ def phase_device(cuda_build):
 _MAIN_PATH_KERNELS = ("head_pw_resident_kernel", "head_pw_streamed_kernel", "head_pw_kernel",
                       "nms_suppress_kernel", "mbconv_pass_kernel", "mbconv_se_kernel",
                       "mbconv_rp_ring_kernel", "tap_floor_fma_f32", "tap_floor_fma_bf16",
-                      "tap_floor_swish_f32", "conv_epilogue_kernel")
+                      "tap_floor_swish_f32", "conv_epilogue_kernel", "depthwise_conv_kernel")
 
 
 def _demangle(mangled):
@@ -617,7 +635,7 @@ def _check_detections(dets, num_classes, batch):
     return n
 
 
-def phase_pipeline(et, hk, nk, ce, card, profile_dir):
+def phase_pipeline(et, hk, nk, ce, dc, card, profile_dir):
     import torch
 
     model, cfg = et.build_efficientdet(0, num_classes=90, dtype=torch.bfloat16, seed=0)
@@ -630,6 +648,7 @@ def phase_pipeline(et, hk, nk, ce, card, profile_dir):
     hk.head_pointwise_anchor_major.launches = 0
     nk.suppression_keep_mask.launches = 0
     ce.conv_epilogue.launches = ce.conv_epilogue.padded = 0
+    dc.depthwise_conv.launches = 0
     calls = 3
     for _ in range(calls):
         dets = predict(images)
@@ -638,9 +657,11 @@ def phase_pipeline(et, hk, nk, ce, card, profile_dir):
     launches = {"head_pointwise": hk.head_pointwise_anchor_major.launches,
                 "nms_suppress": nk.suppression_keep_mask.launches,
                 "conv_epilogue": ce.conv_epilogue.launches,
-                "conv_epilogue_padded": ce.conv_epilogue.padded}
+                "conv_epilogue_padded": ce.conv_epilogue.padded,
+                "depthwise_conv": dc.depthwise_conv.launches}
     if launches != {"head_pointwise": 2 * calls, "nms_suppress": calls,
-                    "conv_epilogue": 48 * calls, "conv_epilogue_padded": 4 * calls}:
+                    "conv_epilogue": 32 * calls, "conv_epilogue_padded": 4 * calls,
+                    "depthwise_conv": 16 * calls}:
         raise AssertionError(f"the main path did not go through its kernels: {launches}")
 
     # the pixel prefilter: one NMS launch a call; the same head outputs as
@@ -1146,10 +1167,47 @@ def phase_conv_epilogue(xce):
                    "launches by CUDA events, device_ms the kernel by torch.profiler, plain_ms "
                    "the twin, bound_ms the bytes at 3.35 TB/s, each summed over the calls"}
     emit(out)
-    if (f32["max_abs_err"] != 0.0 or rec["check"]["ulps"] > 1 or rec["launches"] != 48
+    if (f32["max_abs_err"] != 0.0 or rec["check"]["ulps"] > 1 or rec["launches"] != 32
             or rec["padded"] != 4):
         raise AssertionError(f"conv_epilogue: the kernel left its twin or the path: {out}")
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_depthwise_conv(xdc):
+    """The depthwise kernel against its twin at every depthwise call of a
+    folded backbone forward (D0 in float32 at CHECK_BATCH; the benchmark's
+    inference cells in bf16 at their batches, D4's call past 2^31 input
+    elements among them), then its time there beside its bound, cuDNN's
+    conv and the epilogue, and the SE's mean."""
+    import torch
+
+    backbone, cfg = xdc.folded_backbone(0, torch.float32)
+    images = xdc.nhwc_images(CHECK_BATCH, cfg.image_size, torch.float32,
+                             torch.Generator(device="cuda").manual_seed(3))
+    _, f32 = xdc.forward_calls(backbone, images, check_calls=True)
+    del backbone, images
+    torch.cuda.empty_cache()
+    out = {"phase": "depthwise_conv", "f32_batch": CHECK_BATCH, "f32_check": f32, "cells": {}}
+    want = {"0": (16, 32), "4": (32, 63), "7x": (55, 107)}
+    bad = f32["excess"] > 1 or f32["sums_excess"] > 1
+    for phi, batch in DEPTHWISE_CELLS:
+        rec = xdc.run(phi, batch, torch.bfloat16, DEPTHWISE_STEPS)
+        rec.pop("calls")
+        out["cells"][str(phi)] = rec
+        bad |= (rec["check"]["excess"] > 1 or rec["check"]["sums_excess"] > 1
+                or rec["check"]["ulps"] > 1
+                or (rec["launches"], rec["epilogue_launches"]) != want[str(phi)])
+        torch.cuda.empty_cache()
+    out["note"] = ("check: the worst over each forward's calls (excess: the distance from the twin "
+                   "run in float32 over its stated allowance; sums_excess likewise for the SE sums; "
+                   "ulps against the twin rounded once, bf16); ms the launches by CUDA events, "
+                   "device_ms the kernel by torch.profiler, library_ms cuDNN's conv and the "
+                   "epilogue, mean_ms the SE's torch.mean, bound_ms the bytes at 3.35 TB/s, each "
+                   "summed over a forward's calls at the batch")
+    emit(out)
+    if bad:
+        raise AssertionError(f"depthwise_conv: the kernel left its twin or the path: {out}")
     return out
 
 
@@ -3963,12 +4021,14 @@ def main() -> int:
         return stages_child(args.stages_child)
     import efficientdet_tpu_torch as et
     import efficientdet_tpu_torch.ops.conv_epilogue as ce
+    import efficientdet_tpu_torch.ops.depthwise_conv as dc
     import efficientdet_tpu_torch.ops.head_kernel as hk
     import efficientdet_tpu_torch.ops.nms as tn
     import efficientdet_tpu_torch.ops.nms_kernel as nk
     import efficientdet_tpu_torch.ops.mbconv_kernel as mk
     import efficientdet_tpu_torch.ops.tap_floor_kernel as tk
     from efficientdet_tpu_torch.experiments import conv_epilogue as xce
+    from efficientdet_tpu_torch.experiments import depthwise_conv as xdc
     from efficientdet_tpu_torch.experiments import packed_chain as pc
     from efficientdet_tpu_torch.experiments import packed_mbconv as pm
     from efficientdet_tpu_torch.experiments import tap_floor as tf
@@ -3978,7 +4038,7 @@ def main() -> int:
     card = run_phase("device", phase_device, cuda_build)
     head_err, head_t = run_phase("head_kernel", phase_head, hk)
     nms_t = run_phase("nms_kernel", phase_nms, nk)
-    launches, ms_per_call = run_phase("pipeline", phase_pipeline, et, hk, nk, ce, card,
+    launches, ms_per_call = run_phase("pipeline", phase_pipeline, et, hk, nk, ce, dc, card,
                                         args.profile_dir)
     run_phase("gpu_vs_cpu", phase_gpu_vs_cpu, et, tn)
     mb_err, mb_blocks, harness = run_phase("mbconv_kernels", phase_mbconv, mk, pm)
@@ -3986,6 +4046,7 @@ def main() -> int:
     floor_err, floor, floor_plain, floor_launches = run_phase(
         "tap_floor", phase_tap_floor, tk, tf, chains[0]["baseline_ms"], ms_per_call)
     epi = run_phase("conv_epilogue", phase_conv_epilogue, xce)
+    dwc = run_phase("depthwise_conv", phase_depthwise_conv, xdc)
     run_phase("predictor", phase_predictor, et, nk, card)
     run_phase("serve", phase_serve, et, hk, nk, card)
     export_launches = run_phase("export", phase_export, et, hk, nk, card)
@@ -4076,6 +4137,14 @@ def main() -> int:
          "max_abs_err": epi["f32_max_abs_err"], "bf16_ulps": epi["check"]["ulps"],
          "ms": epi["ms"], "plain_ms": epi["plain_ms"], "bound_ms": epi["bound_ms"],
          "bound_by": epi["bound_by"], "library_ms": None, "device_ms": epi["device_ms"]},
+        {"name": "depthwise_conv", "route": "cuda",
+         "source": "efficientdet_tpu_torch/csrc/depthwise_conv.cu",
+         "replaces": None, "launches": launches["depthwise_conv"],
+         "f32_excess": dwc["f32_check"]["excess"],
+         "bf16_ulps": max(c["check"]["ulps"] for c in dwc["cells"].values()),
+         **{f"d{phi}_{key}": c[key] for phi, c in dwc["cells"].items()
+            for key in ("ms", "device_ms", "bound_ms", "library_ms", "mean_ms", "roofline")},
+         "bound_by": "bytes", "plain_ms": None},
     ], "note": "head_pointwise, nms_suppress: ms per main-path call at batch 128 (head: the "
                "class and the box launch together), the wrapper's call by CUDA events; "
                "device_ms the kernels alone, by torch.profiler; launches over 3 pipeline calls. "
@@ -4104,9 +4173,13 @@ def main() -> int:
                "parity_drill_launches: their launches in the parity_drill phase (the drill at "
                "D0@512 and D7@1536 on 16 images, and at D0 on 4 for the card-CPU check). "
                "conv_epilogue: replaces no TPU kernel (XLA fuses a conv's epilogue); launches "
-               "and padded over the same 3 pipeline calls (48 and 4 a call), ms summed over "
-               "one D0 forward's 48 calls at batch 128 bf16, plain_ms ATen's add, silu, add "
-               "and pad there.",
+               "and padded over the same 3 pipeline calls (32 and 4 a call), ms summed over "
+               "one D0 forward's 32 calls at batch 128 bf16, plain_ms ATen's add, silu, add "
+               "and pad there. depthwise_conv: replaces no TPU kernel (XLA fuses the depthwise "
+               "conv, its epilogue and the SE's reduction); launches over the same 3 pipeline "
+               "calls (16 a call); d<phi>_*: summed over one forward's calls at the benchmark's "
+               "batch (D0 128, D4 64, D7x 16), bf16; library_ms cuDNN's depthwise conv and the "
+               "epilogue, mean_ms the SE's torch.mean they replace.",
         "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "silu.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -181,16 +183,7 @@ template <bool NHWC, bool PAD> struct Pos {
 template <typename T, bool SILU, bool RES>
 __device__ __forceinline__ float epilogue(float x, float b, float r) {
   float v = x + b;
-  if (SILU) {
-    // float32: ATen's formula in precise math, equal to ATen bit for bit.
-    // bf16: the fast exponential and reciprocal, within a few float32 ulps
-    // of it, so at most one bf16 ulp after rounding (below -80 the fast
-    // reciprocal of 1 + e^-v would flush SiLU's tiny value to 0)
-    if (sizeof(T) == 4 || v < -80.f)
-      v = v / (1.0f + expf(-v));
-    else
-      v = v * __fdividef(1.0f, 1.0f + __expf(-v));
-  }
+  if (SILU) v = silu<T>(v);  // precise in float32, the fast form in bf16 (silu.cuh)
   if (RES) v = v + r;
   return v;
 }

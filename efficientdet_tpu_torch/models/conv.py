@@ -15,7 +15,9 @@ its bias (``bias=False``), and one pass of ``ops/conv_epilogue.py`` adds it
 with the activation and residual (models/efficientnet.py); that pass also
 writes the SAME pad of a following stride-2 conv
 (:meth:`Conv2d.explicit_pads`), which then reads its input as it is
-(``padded=True``).
+(``padded=True``). A folded depthwise conv of the backbone
+(:func:`depthwise_folds`) runs in one kernel of ``ops/depthwise_conv.py``
+with its bias, SiLU and the squeeze-excite's channel sums instead.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv_epilogue import Pads
+from ..ops.depthwise_conv import KERNEL_SIZES, STRIDES
 from ..ops.resample import same_pads
 from ..parallel.context import active_context
 
@@ -69,18 +72,26 @@ class Conv2d(nn.Module):
                               lambda whole: same_conv(whole, w, b, k, s, self.groups))
         return same_conv(x, w, b, k, s, self.groups)
 
+    def same_pads(self, x: torch.Tensor) -> Pads:
+        """(top, bottom, left, right): flax's SAME pad of this conv on ``x``."""
+        k, s = self.kernel_size, self.stride
+        return same_pads(x.shape[-2], k, s) + same_pads(x.shape[-1], k, s)
+
     def explicit_pads(self, x: torch.Tensor) -> Optional[Pads]:
         """(top, bottom, left, right): the SAME pad that :func:`same_conv`
         writes around ``x`` before this conv runs on it; None where the conv
         pads by itself, or ``x`` is a band (its halo brings the rows)."""
-        k, s = self.kernel_size, self.stride
-        if s == 1 and k % 2 == 1:
+        if self.stride == 1 and self.kernel_size % 2 == 1:
             return None
-        ctx = active_context()
-        if ctx is not None and ctx.banded(x):
+        if _banded(x):
             return None
-        pads = same_pads(x.shape[-2], k, s) + same_pads(x.shape[-1], k, s)
+        pads = self.same_pads(x)
         return pads if any(pads) else None
+
+
+def _banded(x: torch.Tensor) -> bool:
+    ctx = active_context()
+    return ctx is not None and ctx.banded(x)
 
 
 def folds(conv: Conv2d, x: torch.Tensor) -> bool:
@@ -90,6 +101,21 @@ def folds(conv: Conv2d, x: torch.Tensor) -> bool:
     ATen's separate ops."""
     return (conv.bias is not None and not torch.is_grad_enabled()
             and x.device.type in ("cpu", "cuda"))
+
+
+def depthwise_folds(conv: Conv2d, x: torch.Tensor) -> bool:
+    """Whether the depthwise ``conv`` on ``x`` takes the one-pass depthwise
+    kernel (ops/depthwise_conv.py: the conv, bias, SiLU and the SE's channel
+    sums): where it :func:`folds`, k 3 or 5 at stride 1 or 2, C a multiple of
+    8, float32 or bf16, and not a band of a spatial context (its halo and its
+    SE mean come from the neighbouring ranks). Elsewhere the conv keeps
+    :func:`folds`'s path or ATen's. The layout is not asked: a trace may see
+    a layout the run does not (the kernel copies any but channels-last, the
+    detector's own, and its output keeps ``x``'s layout)."""
+    c = x.shape[1]
+    return (folds(conv, x) and conv.groups == c == conv.weight.shape[0] and c % 8 == 0
+            and conv.kernel_size in KERNEL_SIZES and conv.stride in STRIDES
+            and x.dtype in (torch.float32, torch.bfloat16) and not _banded(x))
 
 
 class SeparableConv(nn.Module):

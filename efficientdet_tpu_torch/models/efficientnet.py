@@ -19,10 +19,13 @@ bands' sums all-reduced (parallel/context.py).
 
 ``fuse_bn=True`` builds the inference-folded variant: every conv carries a
 bias and no BatchNorm exists (utils/fold_bn.py makes its weights). Called
-with grad off, its stem, expand, depthwise and project convs run without
-their biases, and one epilogue pass each adds the bias, the SiLU and the
-residual (models/conv.py ``folds``, ops/conv_epilogue.py); the expand pass of
-a stride-2 block also writes the depthwise conv's SAME pad.
+with grad off, its stem, expand and project convs run without their biases,
+and one epilogue pass each adds the bias, the SiLU and the residual
+(models/conv.py ``folds``, ops/conv_epilogue.py); the expand pass of a
+stride-2 block also writes the depthwise conv's SAME pad. Its depthwise conv
+runs in one kernel with its bias and SiLU, which also sums the output's
+channels for the squeeze-excite's mean (models/conv.py ``depthwise_folds``,
+ops/depthwise_conv.py).
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ from ..configs import (
     round_repeats,
 )
 from ..ops.conv_epilogue import conv_epilogue
+from ..ops.depthwise_conv import depthwise_conv, se_mean
 from ..parallel.context import active_context
-from .conv import Conv2d, folds
+from .conv import Conv2d, depthwise_folds, folds
 from .normalization import TpuBatchNorm
 from .remat import remat
 
@@ -67,6 +71,19 @@ def _conv_bn(conv: Conv2d, bn: nn.Module, x: torch.Tensor, silu: bool,
     return x if residual is None else x + residual
 
 
+def _depthwise_conv_bn(conv: Conv2d, bn: nn.Module, x: torch.Tensor, padded: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor | None]:
+    """``silu(bn(conv(x)))`` of the depthwise conv, and the SE's channel sums
+    where the one-pass depthwise kernel takes it (models/conv.py
+    ``depthwise_folds``), else None. ``padded``: ``x`` already holds the
+    conv's SAME pad."""
+    if depthwise_folds(conv, x):
+        pads = (0, 0, 0, 0) if padded else conv.same_pads(x)
+        return depthwise_conv(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), conv.stride,
+                              pads)
+    return _conv_bn(conv, bn, x, True, padded=padded), None
+
+
 class SqueezeExcite(nn.Module):
     """Global mean (f32) -> reduce 1x1 -> swish -> expand 1x1 -> sigmoid gate."""
 
@@ -75,9 +92,14 @@ class SqueezeExcite(nn.Module):
         self.reduce = Conv2d(channels, num_reduced, 1)
         self.expand = Conv2d(num_reduced, channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sums: torch.Tensor | None = None) -> torch.Tensor:
+        """``sums``: the depthwise kernel's float32 channel sums of ``x``,
+        scaled to shares of the mean (ops/depthwise_conv.py), which give the
+        mean without a pass over ``x``; or None."""
         ctx = active_context()
-        if ctx is not None and ctx.banded(x):
+        if sums is not None:
+            se = se_mean(sums).to(x.dtype)
+        elif ctx is not None and ctx.banded(x):
             se = ctx.spatial_mean(x).to(x.dtype)
         else:
             se = torch.mean(x, dim=(2, 3), keepdim=True,
@@ -123,9 +145,10 @@ class MBConvBlock(nn.Module):
             if folds(self.expand_conv, x):
                 pads = self.depthwise_conv.explicit_pads(x)
             x = _conv_bn(self.expand_conv, self.expand_bn, x, True, pads=pads)
-        x = _conv_bn(self.depthwise_conv, self.depthwise_bn, x, True, padded=pads is not None)
+        x, sums = _depthwise_conv_bn(self.depthwise_conv, self.depthwise_bn, x,
+                                     padded=pads is not None)
         if self.has_se:
-            x = self.se(x)
+            x = self.se(x, sums)
         residual = inputs if self.residual and keep is None else None
         x = _conv_bn(self.project_conv, self.project_bn, x, False, residual)
         if self.residual and keep is not None:

@@ -3,7 +3,8 @@
 Each source in ``csrc/`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), under
 ``_build/`` beside the package, at first use. The library's file name holds
-a hash of its source and flags, so an edited source is rebuilt. Nothing here
+a hash of its source, the headers beside it (``csrc/*.cuh``) and its flags,
+so an edited source or header is rebuilt. Nothing here
 runs at import: the CPU-only tests import every module without nvcc.
 """
 
@@ -50,10 +51,14 @@ def _flags(name: str) -> List[str]:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_flags(name)).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    h = hashlib.sha256()
+    # the source and every header beside it (a source includes its headers from csrc/)
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(_flags(name)).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str]) -> None:

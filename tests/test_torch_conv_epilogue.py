@@ -2,7 +2,9 @@
 
 On the CPU: the custom ops run the plain twin (ATen's add, silu, add and
 pad), held here to that sequence written out, at every epilogue call a
-folded B0 forward makes and at a B4 stage, in f32 and bf16; the folded
+folded B0 forward makes where the depthwise convs also end in one (as on a
+spatial band; elsewhere ops/depthwise_conv.py finishes them) and at a B4
+stage, in f32 and bf16; the folded
 backbone's taps through the epilogue against the parent's path (the bias
 inside the conv, then silu, add and ``F.pad``), which any call with grad
 still takes; the epilogue's calls per forward (none off the folded path),
@@ -20,6 +22,7 @@ capture and replay, one ``.edz`` export and load at D0, and the launch
 counters per folded forward at D0 and D4.
 """
 
+import contextlib
 import dataclasses
 import itertools
 
@@ -31,8 +34,10 @@ import efficientdet_tpu_torch as et
 from efficientdet_tpu_torch.experiments import conv_epilogue as xp
 from efficientdet_tpu_torch.models import conv as conv_mod
 from efficientdet_tpu_torch.models.detector import init_weights
+from efficientdet_tpu_torch.models import efficientnet
 from efficientdet_tpu_torch.models.efficientnet import EfficientNet
 from efficientdet_tpu_torch.ops import conv_epilogue as ce
+from efficientdet_tpu_torch.ops import depthwise_conv as dc
 
 OPS = torch.ops.efficientdet_tpu_torch
 SIZE = 128  # the CPU tests' image size
@@ -80,12 +85,27 @@ def _slim(image_size=SIZE):
     return dataclasses.replace(cfg, bifpn_width=16, bifpn_depth=2, head_depth=2)
 
 
+@contextlib.contextmanager
+def _depthwise_on_the_epilogue():
+    """A folded backbone's depthwise convs on ATen's conv and the epilogue,
+    as a spatial band still runs them (elsewhere the one-pass depthwise
+    kernel of ops/depthwise_conv.py takes them)."""
+    fn = efficientnet.depthwise_folds
+    efficientnet.depthwise_folds = lambda conv, x: False
+    try:
+        yield
+    finally:
+        efficientnet.depthwise_folds = fn
+
+
 @pytest.fixture(scope="module")
 def b0_calls():
     """Every epilogue call of a folded B0 forward at 128 px, on a
-    channels-last batch as the detector's."""
+    channels-last batch as the detector's, its depthwise convs' included
+    (:func:`_depthwise_on_the_epilogue`)."""
     images = xp.nhwc_images(1, SIZE, torch.float32, torch.Generator().manual_seed(0), "cpu")
-    return xp.forward_calls(_random_folded_backbone(0), images)[0]
+    with _depthwise_on_the_epilogue():
+        return xp.forward_calls(_random_folded_backbone(0), images)[0]
 
 
 # shapes with a scalar tail (H x W and C odd)
@@ -136,6 +156,10 @@ def test_twin_at_edge_shapes_and_a_b4_stage(shape, dtype, layout):
 def test_b0_calls_and_their_pads(b0_calls):
     calls = b0_calls
     assert len(calls) == 48
+    # on the folded route the depthwise kernel takes B0's 16 depthwise convs
+    images = xp.nhwc_images(1, SIZE, torch.float32, torch.Generator().manual_seed(0), "cpu")
+    folded_route = xp.forward_calls(_random_folded_backbone(0), images)[0]
+    assert len(folded_route) == 32 and sum(c.pads is not None for c in folded_route) == 4
     padded = [c for c in calls if c.pads is not None]
     # stages 2, 3, 4 and 6 open with a stride-2 depthwise conv: k3, k5, k3, k5
     assert [c.pads for c in padded] == [(0, 1, 0, 1), (1, 2, 1, 2), (0, 1, 0, 1), (1, 2, 1, 2)]
@@ -165,13 +189,15 @@ def _counters():
     return ce.conv_epilogue.launches, ce.conv_epilogue.padded
 
 
-@pytest.mark.parametrize("phi,launches", [(0, 48), (4, 95)])
+@pytest.mark.parametrize("phi,launches", [(0, 32), (4, 63)])
 def test_counter_per_folded_forward(phi, launches):
-    """A folded forward with grad off makes 48 epilogue calls at D0 and 95
-    at D4, 4 of them padded; here they run the twin, which the launch
-    counters do not count (they count the card's launches)."""
+    """A folded forward with grad off makes 32 epilogue calls at D0 and 63
+    at D4 (the stem, the expands and the projects: the depthwise kernel
+    finishes the depthwise convs itself), 4 of them padded; here they run
+    the twin, which the launch counters do not count (they count the card's
+    launches)."""
     backbone = _random_folded_backbone(phi)
-    x = torch.randn(1, 3, SIZE, SIZE)
+    x = xp.nhwc_images(1, SIZE, torch.float32, torch.Generator().manual_seed(phi), "cpu")
     for mode in (torch.inference_mode, torch.no_grad):
         before = _counters()
         with xp.recording() as (calls, _), mode():
@@ -188,7 +214,7 @@ def test_counter_reads_zero_off_the_folded_path():
         unfused(x)  # no conv bias: BN after the conv
         assert calls == []
         et.predict_pipeline(folded, (x * 255).to(torch.uint8))  # the control
-    assert (len(calls), sum(c.pads is not None for c in calls)) == (48, 4)
+    assert (len(calls), sum(c.pads is not None for c in calls)) == (32, 4)
     with xp.recording() as (calls, _), torch.enable_grad():
         folded(x)  # a call with grad
     assert calls == []
@@ -264,7 +290,7 @@ def test_kernel_against_twin_at_d0_b128_calls_on_the_gpu(dtype):
     backbone, cfg = xp.folded_backbone(0, dtype)
     images = xp.nhwc_images(128, 512, dtype, torch.Generator(device="cuda").manual_seed(0))
     calls, worst = xp.forward_calls(backbone, images, check=True)
-    assert len(calls) == 48 and sum(c.pads is not None for c in calls) == 4
+    assert len(calls) == 32 and sum(c.pads is not None for c in calls) == 4
     assert all(c.channels_last for c in calls)
     if dtype == torch.float32:
         assert worst["max_abs_err"] == 0.0, worst
@@ -273,7 +299,7 @@ def test_kernel_against_twin_at_d0_b128_calls_on_the_gpu(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("phi,launches", [(0, 48), (4, 95)])
+@pytest.mark.parametrize("phi,launches", [(0, 32), (4, 63)])
 def test_counter_per_folded_forward_on_the_gpu(phi, launches):
     """The launch counters read one launch a call, 4 of them padded."""
     _need_cuda()
@@ -392,15 +418,17 @@ def test_edz_round_trip_on_the_gpu(tmp_path):
     fused = et.fuse_for_inference(model)
     exported, _ = export_predict(fused, 4)
     targets = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
-    assert sum("conv_epilogue" in t for t in targets) == 48
+    assert sum("conv_epilogue" in t for t in targets) == 32
+    assert sum("depthwise_conv_silu" in t for t in targets) == 16
     path = str(tmp_path / "d0.edz")
     save_exported(path, fused, 4)
     predict, _ = load_exported(path, device="cuda")
     x = torch.randint(0, 256, (4, 512, 512, 3), dtype=torch.uint8, device="cuda")
     with torch.inference_mode():
         eager = et.predict_pipeline(fused, x)
-    before = _counters()
+    before, dw = _counters(), dc.depthwise_conv.launches
     got = predict(x)
     after = _counters()
-    assert (after[0] - before[0], after[1] - before[1]) == (48, 4)  # the loaded program's launches
+    assert (after[0] - before[0], after[1] - before[1]) == (32, 4)  # the loaded program's launches
+    assert dc.depthwise_conv.launches - dw == 16
     assert all(torch.equal(a, b) for a, b in zip(got, eager))
