@@ -37,14 +37,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    three bf16 calls at batch 16 through make_predict_fn with the launch
    counters reset just before (2 head, 1 NMS, 32 conv epilogue launches
    a call, 4 of them padded, and 16 depthwise launches); the detections
-   checked; then img/s at
-   batch 128 bf16; the "pixel_gather" front end at batch 16 (one NMS launch
-   a call) against "concat" on the same head outputs, and its img/s at
-   batch 128;
+   checked; then img/s at batch 128 bf16;
 5. gpu_vs_cpu: the same model in float32 (TF32 off) on the card and on the
    CPU (which takes the kernels' plain versions) at batch 2: raw head
-   outputs, then detections; on the card, "pixel_gather" against
-   "anchor_major" in float32;
+   outputs, then detections;
 6. mbconv_kernels: csrc/fused_mbconv.cu's three launchers (packed, row-
    padded, NHWC) against their plain versions in f32 and bf16, on the JAX
    tests' tiny cases, the kernel's edges (MBCONV_EDGES) and the D0 blocks at
@@ -62,17 +58,18 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    rates (f32/bf16 x chains 1/4), the f32 swish rate, the 1x1 products'
    ms, and the stages-1-3 floor against the chain phase's D0 baseline and
    the pipeline phase's ms per call;
-9. conv_epilogue: csrc/conv_epilogue.cu against its twin (ATen's add,
-   silu, add and pad) on the inputs of every epilogue call of a folded
-   D0@512 backbone forward (experiments/conv_epilogue.py): float32 at batch
-   16 bit for bit, bf16 at batch 128 within one ulp of the twin run in
-   float32 and rounded once; 32 calls a forward, 4 of them padded; then at
-   those batch-128 shapes the launch's ms, the kernel's device ms, the
-   twin's ms and the bound of its bytes;
+9. conv_epilogue: the folded backbone's two ops (experiments/folded_ops.py)
+   on the inputs of each of their calls in one folded D0@512 backbone
+   forward in float32 at batch 16, and in one in bf16 at batch 128; here
+   csrc/conv_epilogue.cu against its twin (ATen's add, silu, add and pad):
+   float32 bit for bit, bf16 within one ulp of the twin run in float32 and
+   rounded once; 32 calls a forward, 4 of them padded; then at those
+   batch-128 shapes the launch's ms, the kernel's device ms, the twin's ms
+   and the bound of its bytes;
 9b. depthwise_conv: csrc/depthwise_conv.cu against its twin (cuDNN's
    depthwise conv in float32, bias and SiLU; the SE sums against the
    kernel's own outputs summed by ATen) on the inputs of every depthwise
-   call of a folded backbone forward (experiments/depthwise_conv.py):
+   call of a folded backbone forward (D0's two forwards from phase 9):
    D0@512 in float32 at batch 16 within the stated bound, D0@512 b128,
    D4@1024 b64 (its 2.43e9-element stage-2 input included) and D7x@1536
    b16 in bf16, at the benchmark's batches, within it and within one ulp
@@ -664,41 +661,22 @@ def phase_pipeline(et, hk, nk, ce, dc, card, profile_dir):
                     "depthwise_conv": 16 * calls}:
         raise AssertionError(f"the main path did not go through its kernels: {launches}")
 
-    # the pixel prefilter: one NMS launch a call; the same head outputs as
-    # "concat", so its detections are those of "concat" up to tie order
-    nk.suppression_keep_mask.launches = 0
-    pixel = et.predict_pipeline(model, images, front_end="pixel_gather")
-    torch.cuda.synchronize()
-    pixel_launches = nk.suppression_keep_mask.launches
-    if pixel_launches != 1:
-        raise AssertionError(f"pixel_gather launched the NMS kernel {pixel_launches} times, not once")
-    _check_detections(pixel, cfg.num_classes, CHECK_BATCH)
-    pixel_vs_concat = _agree(pixel, et.predict_pipeline(model, images, front_end="concat"),
-                             "pixel_gather vs concat, bf16", bf16=True)
-
     big = torch.from_numpy(rng.randint(0, 256, (BENCH_BATCH, size, size, 3)).astype(np.uint8)).cuda()
-    img_s = {}
-    for front_end in ("anchor_major", "pixel_gather"):
-        run = et.make_predict_fn(model, front_end=front_end)
-        for _ in range(2):
-            _check_detections(run(big), cfg.num_classes, BENCH_BATCH)
-        torch.cuda.synchronize()
-        steps = 5
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            out = run(big)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        _check_detections(out, cfg.num_classes, BENCH_BATCH)
-        img_s[front_end] = (steps * BENCH_BATCH / dt, dt / steps * 1e3)
+    for _ in range(2):
+        _check_detections(predict(big), cfg.num_classes, BENCH_BATCH)
+    torch.cuda.synchronize()
+    steps = 5
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = predict(big)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _check_detections(out, cfg.num_classes, BENCH_BATCH)
     rec = {"phase": "pipeline", "model": "D0@512, 90 classes, BN folded, bf16",
            "check_batch": CHECK_BATCH, "check_calls": calls, "launches": launches,
            "num_valid": [int(v) for v in n],
-           "bench_batch": BENCH_BATCH, "img_s_bf16": img_s["anchor_major"][0],
-           "ms_per_call": img_s["anchor_major"][1],
-           "pixel_gather": {"nms_launches": pixel_launches, "vs_concat": pixel_vs_concat,
-                            "img_s_bf16": img_s["pixel_gather"][0],
-                            "ms_per_call": img_s["pixel_gather"][1]},
+           "bench_batch": BENCH_BATCH, "img_s_bf16": steps * BENCH_BATCH / dt,
+           "ms_per_call": dt / steps * 1e3,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
     emit(rec)
     if profile_dir:
@@ -707,45 +685,6 @@ def phase_pipeline(et, hk, nk, ce, dc, card, profile_dir):
     del big, images, model
     torch.cuda.empty_cache()
     return launches, rec["ms_per_call"]
-
-
-def _agree(a, b, label, bf16=False):
-    """Detections of two front ends on the same images.
-
-    float32: counts exactly and scores to 1e-6 by rank (the JAX package's
-    own check of its front ends); a rank whose box or class differs must be
-    a tie, its scores bit-identical in the two (nearest-upsampled BiFPN
-    pixels give bit-identical logits, which the front ends order
-    otherwise). bf16: logits on a grid of 2^-8 relative tie by the hundred
-    at the prefilters' K-th place, so the two candidate pools differ there
-    and detections near the cut may differ, and equal scores of other
-    classes or boxes swap places: counts exactly, and at least 90% of the
-    scores, bit for bit, common to the two sets. Raises on a disagreement."""
-    from collections import Counter
-
-    import torch
-
-    a, b = [t.cpu() for t in a], [t.cpu() for t in b]
-    counts_equal = bool(torch.equal(a[3], b[3]))
-    worst, differ, untied, common = 0.0, 0, 0, 0
-    for i in range(a[3].shape[0]):
-        n = min(int(a[3][i]), int(b[3][i]))
-        if n == 0:
-            continue
-        worst = max(worst, (a[1][i, :n] - b[1][i, :n]).abs().max().item())
-        other = (a[2][i, :n] != b[2][i, :n]) | (a[0][i, :n] != b[0][i, :n]).any(-1)
-        differ += int(other.sum())
-        untied += int((other & (a[1][i, :n] != b[1][i, :n])).sum())
-        scores = [Counter(t[1][i, :n].tolist()) for t in (a, b)]
-        common += sum((scores[0] & scores[1]).values())
-    total = int(a[3].sum())
-    rec = {"counts_equal": counts_equal, "detections": total, "max_abs_dscore_by_rank": worst,
-           "box_or_class_differ_by_rank": differ, "of_them_untied": untied,
-           "scores_in_common": common}
-    ok = counts_equal and (common >= 0.9 * total if bf16 else worst <= 1e-6 and untied == 0)
-    if not ok:
-        raise AssertionError(f"{label}: the front ends disagree: {rec}")
-    return rec
 
 
 def _profile(call, out_dir, ms_per_call, calls: int = 3, trace: str = "pipeline_trace.json"):
@@ -893,16 +832,8 @@ def phase_gpu_vs_cpu(et, tn):
     dets = {dev: [t.cpu() for t in et.make_predict_fn(m)(images.to(dev))]
             for dev, m in models.items()}
     end_to_end = _card_vs_cpu(dets, images.shape[0])
-    # the pixel prefilter against the main path's front end on the card, in
-    # float32 (the head kernel and cuDNN's 1x1 conv sum in other orders; in
-    # bf16 they round one ulp apart, and logits tie, see _agree)
-    on_card = images.cuda()
-    pixel_vs_anchor_major = _agree(
-        et.predict_pipeline(models["cuda"], on_card, front_end="pixel_gather"),
-        dets["cuda"], "pixel_gather vs anchor_major, f32")
     emit({"phase": "gpu_vs_cpu", "batch": 2, "dtype": "float32, TF32 off",
-          "head_outputs": heads, "nms_same_heads": same_heads, "end_to_end": end_to_end,
-          "pixel_gather_vs_anchor_major": pixel_vs_anchor_major})
+          "head_outputs": heads, "nms_same_heads": same_heads, "end_to_end": end_to_end})
 
 
 def phase_mbconv(mk, pm):
@@ -1148,56 +1079,70 @@ def _valid(dets, num_classes):
                 and ((classes >= 0) & (classes < num_classes)).all())
 
 
-def phase_conv_epilogue(xce):
-    """The conv epilogue kernel against its twin at every call of a folded
-    D0@512 backbone forward (float32 at CHECK_BATCH, bf16 at BENCH_BATCH),
-    then its time at the batch-128 shapes beside its bound and the twin's."""
+def _op_record(rec, name):
+    """One op's record from ``folded_ops.run``'s: the run's fields and the
+    op's own, its calls left out."""
+    return {**{k: v for k, v in rec.items() if k not in ("launches", "conv_epilogue",
+                                                         "depthwise_conv")},
+            **{k: v for k, v in rec[name].items() if k != "calls"}}
+
+
+def phase_conv_epilogue(xf):
+    """The folded backbone's two ops against their twins at every call of
+    one folded D0@512 backbone forward in float32 at CHECK_BATCH and one in
+    bf16 at BENCH_BATCH; then the conv epilogue's time at the batch-128
+    shapes beside its bound and the twin's. Returns the phase's record and
+    the depthwise kernel's D0 results (its float32 check and its bf16 run)
+    for its own phase."""
     import torch
 
-    backbone, cfg = xce.folded_backbone(0, torch.float32)
-    images = xce.nhwc_images(CHECK_BATCH, cfg.image_size, torch.float32,
-                             torch.Generator(device="cuda").manual_seed(3))
-    _, f32 = xce.forward_calls(backbone, images, check=True)
+    backbone, cfg = xf.folded_backbone(0, torch.float32)
+    images = xf.nhwc_images(CHECK_BATCH, cfg.image_size, torch.float32,
+                            torch.Generator(device="cuda").manual_seed(3))
+    _, f32 = xf.forward_calls(backbone, images, check=xf.OPS)
     del backbone, images
-    rec = xce.run(0, BENCH_BATCH, torch.bfloat16, EPILOGUE_STEPS)
-    out = {"phase": "conv_epilogue", "f32_batch": CHECK_BATCH, "f32_max_abs_err": f32["max_abs_err"],
-           **{k: v for k, v in rec.items() if k != "calls"},
+    torch.cuda.empty_cache()
+    rec = xf.run(0, BENCH_BATCH, torch.bfloat16, EPILOGUE_STEPS)
+    out = {"phase": "conv_epilogue", "f32_batch": CHECK_BATCH,
+           "f32_max_abs_err": f32["conv_epilogue"]["max_abs_err"],
+           "launches": rec["launches"]["conv_epilogue.launches"],
+           "padded": rec["launches"]["conv_epilogue.padded"],
+           **_op_record(rec, "conv_epilogue"),
            "note": "check: the worst over the bf16 forward's calls (ulps against the twin in "
                    "float32 rounded once; ulps_vs_bf16_ops against the twin in bf16); ms the "
                    "launches by CUDA events, device_ms the kernel by torch.profiler, plain_ms "
                    "the twin, bound_ms the bytes at 3.35 TB/s, each summed over the calls"}
     emit(out)
-    if (f32["max_abs_err"] != 0.0 or rec["check"]["ulps"] > 1 or rec["launches"] != 32
-            or rec["padded"] != 4):
+    if (out["f32_max_abs_err"] != 0.0 or out["check"]["ulps"] > 1 or out["launches"] != 32
+            or out["padded"] != 4):
         raise AssertionError(f"conv_epilogue: the kernel left its twin or the path: {out}")
     torch.cuda.empty_cache()
-    return out
+    return out, (f32["depthwise_conv"], rec)
 
 
-def phase_depthwise_conv(xdc):
+def phase_depthwise_conv(xf, d0):
     """The depthwise kernel against its twin at every depthwise call of a
     folded backbone forward (D0 in float32 at CHECK_BATCH; the benchmark's
     inference cells in bf16 at their batches, D4's call past 2^31 input
     elements among them), then its time there beside its bound, cuDNN's
-    conv and the epilogue, and the SE's mean."""
+    conv and the epilogue, and the SE's mean. ``d0``: D0's float32 check
+    and bf16 run, from phase conv_epilogue's forwards."""
     import torch
 
-    backbone, cfg = xdc.folded_backbone(0, torch.float32)
-    images = xdc.nhwc_images(CHECK_BATCH, cfg.image_size, torch.float32,
-                             torch.Generator(device="cuda").manual_seed(3))
-    _, f32 = xdc.forward_calls(backbone, images, check_calls=True)
-    del backbone, images
-    torch.cuda.empty_cache()
+    f32, d0_run = d0
     out = {"phase": "depthwise_conv", "f32_batch": CHECK_BATCH, "f32_check": f32, "cells": {}}
     want = {"0": (16, 32), "4": (32, 63), "7x": (55, 107)}
     bad = f32["excess"] > 1 or f32["sums_excess"] > 1
     for phi, batch in DEPTHWISE_CELLS:
-        rec = xdc.run(phi, batch, torch.bfloat16, DEPTHWISE_STEPS)
-        rec.pop("calls")
-        out["cells"][str(phi)] = rec
-        bad |= (rec["check"]["excess"] > 1 or rec["check"]["sums_excess"] > 1
-                or rec["check"]["ulps"] > 1
-                or (rec["launches"], rec["epilogue_launches"]) != want[str(phi)])
+        rec = d0_run if (phi, batch) == (0, BENCH_BATCH) else xf.run(
+            phi, batch, torch.bfloat16, DEPTHWISE_STEPS, ops=("depthwise_conv",))
+        cell = {"launches": rec["launches"]["depthwise_conv.launches"],
+                "epilogue_launches": rec["launches"]["conv_epilogue.launches"],
+                **_op_record(rec, "depthwise_conv")}
+        out["cells"][str(phi)] = cell
+        bad |= (cell["check"]["excess"] > 1 or cell["check"]["sums_excess"] > 1
+                or cell["check"]["ulps"] > 1
+                or (cell["launches"], cell["epilogue_launches"]) != want[str(phi)])
         torch.cuda.empty_cache()
     out["note"] = ("check: the worst over each forward's calls (excess: the distance from the twin "
                    "run in float32 over its stated allowance; sums_excess likewise for the SE sums; "
@@ -3990,12 +3935,16 @@ def phase_parity_drill(et, hk, nk, card):
 
 
 def run_phase(name, fn, *args):
-    """``{"phase": name}`` on stdout, then ``fn(*args)``; a failure's
-    traceback goes to stdout too (with the phase named above it) and the
-    exception propagates, so the exit code stays non-zero."""
+    """``{"phase": name}`` on stdout, then ``fn(*args)``, then the phase's
+    seconds (``{"phase_seconds": name, ...}``); a failure's traceback goes
+    to stdout too (with the phase named above it) and the exception
+    propagates, so the exit code stays non-zero."""
     emit({"phase": name})
+    t0 = time.perf_counter()
     try:
-        return fn(*args)
+        out = fn(*args)
+        emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
+        return out
     except BaseException:
         print(f"chip_smoke: phase {name} failed:", flush=True)
         traceback.print_exc(file=sys.stdout)
@@ -4027,8 +3976,7 @@ def main() -> int:
     import efficientdet_tpu_torch.ops.nms_kernel as nk
     import efficientdet_tpu_torch.ops.mbconv_kernel as mk
     import efficientdet_tpu_torch.ops.tap_floor_kernel as tk
-    from efficientdet_tpu_torch.experiments import conv_epilogue as xce
-    from efficientdet_tpu_torch.experiments import depthwise_conv as xdc
+    from efficientdet_tpu_torch.experiments import folded_ops as xf
     from efficientdet_tpu_torch.experiments import packed_chain as pc
     from efficientdet_tpu_torch.experiments import packed_mbconv as pm
     from efficientdet_tpu_torch.experiments import tap_floor as tf
@@ -4045,8 +3993,8 @@ def main() -> int:
     chains, chain_launches = run_phase("chain", phase_chain, mk, pc)
     floor_err, floor, floor_plain, floor_launches = run_phase(
         "tap_floor", phase_tap_floor, tk, tf, chains[0]["baseline_ms"], ms_per_call)
-    epi = run_phase("conv_epilogue", phase_conv_epilogue, xce)
-    dwc = run_phase("depthwise_conv", phase_depthwise_conv, xdc)
+    epi, d0 = run_phase("conv_epilogue", phase_conv_epilogue, xf)
+    dwc = run_phase("depthwise_conv", phase_depthwise_conv, xf, d0)
     run_phase("predictor", phase_predictor, et, nk, card)
     run_phase("serve", phase_serve, et, hk, nk, card)
     export_launches = run_phase("export", phase_export, et, hk, nk, card)

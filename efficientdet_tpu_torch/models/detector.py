@@ -29,7 +29,6 @@ from ..configs import (
 )
 from ..ops.nms import (
     batched_filter_from_anchor_major_levels,
-    batched_filter_from_level_logits,
     batched_filter_from_logits,
 )
 from ..ops.preprocess import preprocess_batch_fixed
@@ -40,7 +39,7 @@ from .efficientnet import EfficientNet
 from .heads import BoxNet, ClassNet, prior_prob_bias
 from .normalization import TpuBatchNorm
 
-FRONT_ENDS = ("anchor_major", "concat", "pixel_gather")
+FRONT_ENDS = ("anchor_major", "concat")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -232,10 +231,9 @@ def predict_pipeline(
 ):
     """[normalise ->] forward -> decode -> NMS, on the model's device.
 
-    ``front_end``: ``"anchor_major"`` (default, through both kernels),
-    ``"concat"`` (reference-shaped (B, A, C) tensors) or ``"pixel_gather"``
-    (the exact pixel prefilter over the heads' NHWC levels); all three give
-    the same detections up to the order of bit-identical logits. Capturable
+    ``front_end``: ``"anchor_major"`` (default, through both kernels) or
+    ``"concat"`` (reference-shaped (B, A, C) tensors); the two give the
+    same detections up to the order of bit-identical logits. Capturable
     in a CUDA graph once the anchors for this size are cached (one eager
     call).
     """
@@ -255,12 +253,6 @@ def predict_pipeline(
         with stage("postprocess"):
             return batched_filter_from_anchor_major_levels(
                 anchors, box_out, cls_out, (size, size), eval_config
-            )
-    if front_end == "pixel_gather":
-        cls_levels, box_levels = model(images, raw_levels=True)
-        with stage("postprocess"):
-            return batched_filter_from_level_logits(
-                anchors, box_levels, cls_levels, (size, size), eval_config
             )
     cls_logits, box_deltas = model(images)
     with stage("postprocess"):

@@ -14,8 +14,8 @@ Three output paths:
 * ``anchor_major=False``: per level, the final 1x1 conv, reshaped to
   (B, H*W*A, out) and concatenated over levels (the ``"concat"`` front end);
 * ``raw_levels=True``: per level, the final conv's output in NHWC conv
-  layout, (B, H, W, A*out), not concatenated (the ``"pixel_gather"`` front
-  end);
+  layout, (B, H, W, A*out), not concatenated (the training loss and the
+  spatial step read it);
 * ``anchor_major=True`` (the main path): per level, only the final
   depthwise; its output becomes NHWC pixel rows ``b*H*W + p``, the rows of
   all levels are concatenated, and ONE launch of the head pointwise kernel

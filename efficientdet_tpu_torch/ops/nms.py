@@ -2,9 +2,8 @@
 
 Counterpart of the JAX package's ``ops/nms.py``: the readable spec
 (:func:`filter_detections`, probability space, plain torch, sharing no code
-with the rest), and the production path with its three front ends
-(``"anchor_major"``, ``"concat"``, ``"pixel_gather"``) and their shared
-tail. Pipeline per image:
+with the rest), and the production path with its two front ends
+(``"anchor_major"``, ``"concat"``) and their shared tail. Pipeline per image:
 
 1. anchor prefilter: the top ``pre_nms_top_k`` anchors by best-class logit;
 2. per-anchor class cap (``per_anchor_top_c``), then the score-threshold
@@ -13,8 +12,7 @@ tail. Pipeline per image:
 4. the top ``max_detections`` kept pairs; sigmoid on those only.
 
 The production path holds no host sync and no shape that depends on the
-data, so the serving path captures it in a CUDA graph; the pixel
-prefilter's per-level gathers stay masked gathers for that reason.
+data, so the serving path captures it in a CUDA graph.
 
 Every top-k here is a stable descending sort, so ties keep the lower index
 first, as ``lax.top_k`` does. (The JAX package's default prefilter is an
@@ -253,74 +251,6 @@ def filter_detections_from_logits(
         anchors, box_deltas[None], cls_logits[None], image_hw, config
     )
     return boxes[0], scores[0], classes[0], nvalid[0]
-
-
-def batched_filter_from_level_logits(
-    anchors: torch.Tensor,
-    box_levels,
-    cls_levels,
-    image_hw: Tuple[int, int],
-    config: EvalConfig = EvalConfig(),
-):
-    """The ``"pixel_gather"`` front end over the heads' raw NHWC levels.
-
-    cls_levels / box_levels: per level (B, Hl, Wl, A*C) logits and
-    (B, Hl, Wl, A*4) deltas. A pixel prefilter replaces the (B, A_total, C)
-    concat:
-
-    1. per-pixel max over the A*C channels, concatenated over levels;
-    2. the top-K pixels: a pixel's max is at least each of its anchors'
-       best logit, so at most K-1 pixels outrank the pixel of any top-K
-       anchor, and the top-K pixels hold every top-K anchor;
-    3. the K pixel rows gathered per level (masked gathers: no shape that
-       depends on the data), then the exact top-K anchors of that pool.
-
-    The same detections as :func:`batched_filter_from_logits` on the
-    concatenated tensors, up to the order of bit-identical logits.
-    """
-    bsz = cls_levels[0].shape[0]
-    a_cell = box_levels[0].shape[-1] // 4
-    num_classes = cls_levels[0].shape[-1] // a_cell
-
-    # 1. per-pixel max over all anchor x class channels
-    sizes = [lvl.shape[1] * lvl.shape[2] for lvl in cls_levels]
-    pixel_best = torch.cat(
-        [lvl.amax(dim=-1).reshape(bsz, n) for lvl, n in zip(cls_levels, sizes)], dim=1
-    )  # (B, P) model dtype
-
-    # 2. top-K pixels (a superset of the top-K anchors' pixels)
-    k_pix = min(config.pre_nms_top_k, pixel_best.shape[1])
-    top_pixel = _topk(pixel_best, k_pix)[1]  # (B, Kp) global pixel ids
-
-    # 3. the K pixel rows, per level, by masked gathers
-    cls_rows = cls_levels[0].new_zeros((bsz, k_pix, a_cell * num_classes))
-    box_rows = box_levels[0].new_zeros((bsz, k_pix, a_cell * 4))
-    off = 0
-    for lvl_c, lvl_b, n in zip(cls_levels, box_levels, sizes):
-        local = top_pixel - off
-        in_lvl = (local >= 0) & (local < n)
-        li = local.clamp(0, n - 1)[..., None]
-        got_c = torch.gather(lvl_c.reshape(bsz, n, -1), 1, li.expand(-1, -1, cls_rows.shape[-1]))
-        cls_rows = torch.where(in_lvl[..., None], got_c, cls_rows)
-        got_b = torch.gather(lvl_b.reshape(bsz, n, -1), 1, li.expand(-1, -1, box_rows.shape[-1]))
-        box_rows = torch.where(in_lvl[..., None], got_b, box_rows)
-        off += n
-
-    # 4. the exact top-K anchors of the (B, Kp * A_cell) pool
-    pool = k_pix * a_cell
-    cand_all = cls_rows.reshape(bsz, pool, num_classes)
-    k_anchor = min(config.pre_nms_top_k, pool)
-    top_local = _topk(cand_all.amax(dim=-1), k_anchor)[1]  # ids into the pool
-    cand_logits = torch.gather(cand_all, 1, top_local[..., None].expand(-1, -1, num_classes))
-    cand_deltas = torch.gather(
-        box_rows.reshape(bsz, pool, 4), 1, top_local[..., None].expand(-1, -1, 4)
-    ).float()
-    # the anchors table orders level-major, then (pixel, anchor), as the
-    # concat front end flattens
-    gpix = torch.gather(top_pixel, 1, top_local // a_cell)
-    cand_anchors = anchors.float()[gpix * a_cell + top_local % a_cell]
-    cand_boxes_a = clip_boxes(decode_boxes(cand_deltas, cand_anchors), image_hw)
-    return _pairs_and_suppress(cand_logits, cand_boxes_a, num_classes, config)
 
 
 def anchor_major_candidates(

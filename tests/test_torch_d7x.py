@@ -129,7 +129,7 @@ def test_each_level_matches_the_reference(d7x, fuse):
         assert gap <= LEVEL_TOL * float(want.abs().max()), (got.shape, gap)
 
 
-@pytest.mark.parametrize("front_end", ["anchor_major", "pixel_gather"])
+@pytest.mark.parametrize("front_end", ["anchor_major", "concat"])
 def test_detections_match_the_reference(d7x, front_end):
     port = port_model(d7x["cfg"], d7x["sd"], torch.float32, "cpu", fuse=True)
     predict = et.make_predict_fn(port, et.EvalConfig(), front_end=front_end)

@@ -222,6 +222,13 @@ CONFIGS = [
     dict(score_threshold=0.3, pre_nms_top_k=300),        # many below threshold, K % 128 != 0
     dict(nms_iou_threshold=0.3, max_detections=20),
 ]
+# the front ends' inputs: (EvalConfig fields, classes); CONFIGS at 8 classes,
+# then untied levels at 6 classes with top-k 1024 and at 20 with top-k 256,
+# 40 detections
+FRONT_END_CASES = [(kw, 8) for kw in CONFIGS] + [
+    (dict(pre_nms_top_k=1024, max_detections=40), 6),
+    (dict(pre_nms_top_k=256, max_detections=40), 20),
+]
 
 
 def _assert_same(got, want):
@@ -261,10 +268,12 @@ def test_anchor_major_selection_matches_jax(cfg, c):
     assert 0 < int(got[3].min())
 
 
-@pytest.mark.parametrize("cfg", range(len(CONFIGS)))
+@pytest.mark.parametrize("cfg", range(len(FRONT_END_CASES)))
 def test_front_ends_agree(cfg):
-    kw = CONFIGS[cfg]
-    cls_out, box_out, cls, box = _head_outputs(cfg + 100, 2, 8)
+    """The anchor-major front end against the concat one bit for bit, and
+    the concat one against the JAX package's."""
+    kw, c = FRONT_END_CASES[cfg]
+    cls_out, box_out, cls, box = _head_outputs(cfg + 100, 2, c)
     anchors = torch.from_numpy(anchors_for_shape((128, 128)))
     am = tn.batched_filter_from_anchor_major_levels(
         anchors, (torch.from_numpy(box_out[0]), HWS),

@@ -1,8 +1,8 @@
 """The port's single-image path against the JAX package's, on the CPU.
 
 ``preprocess_image``, ``letterbox_hostside``, the spec NMS
-(``filter_detections``), ``filter_detections_from_logits``, the
-``"pixel_gather"`` front end and the ``Predictor`` (with its cache bound,
+(``filter_detections``), ``filter_detections_from_logits``, the refusal
+of an unknown front end and the ``Predictor`` (with its cache bound,
 checkpoint round trip and CLI). Inputs are made with numpy from a seed; the
 model is a tiny D0 (BiFPN and heads at width 16, depth 1, 128 px) whose
 weights are drawn with numpy and bridged into the port by
@@ -129,7 +129,7 @@ def test_letterbox_hostside_takes_uint8_rgb_only():
         letterbox_hostside(np.zeros((8, 8), np.uint8), 64)
 
 
-# -- NMS: the spec, the single-image path, the pixel prefilter ---------------
+# -- NMS: the spec, the single-image path, the front ends ---------------------
 
 def _boxes_scores(seed, b, a, c):
     rng = np.random.RandomState(seed)
@@ -184,62 +184,13 @@ def test_filter_detections_from_logits_matches_jax(num_classes, score_threshold)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0, atol=2e-7)
 
 
-def _levels(seed, cfg, bsz, dtype=np.float32):
-    """Untied random raw head levels: (B, Hl, Wl, A*C) logits, (B, Hl, Wl, A*4) deltas."""
-    rng = np.random.RandomState(seed)
-    a, c = cfg.num_anchors_per_cell, cfg.num_classes
-    cls, box = [], []
-    for h, w in cfg.feature_shapes():
-        cls.append(rng.normal(-3.0, 2.0, (bsz, h, w, a * c)).astype(dtype))
-        box.append(rng.normal(0, 0.5, (bsz, h, w, a * 4)).astype(dtype))
-    return cls, box
-
-
-@pytest.mark.parametrize("num_classes,top_k", [(6, 1024), (20, 256)])
-def test_pixel_gather_front_end_on_untied_levels(num_classes, top_k):
-    """On untied logits the pixel prefilter is exact: the same detections as
-    the concat front end on the concatenated levels, bit for bit, and as
-    the JAX package's pixel prefilter (scores to two ulps)."""
-    cfg = _tiny_config(num_classes)
-    cls, box = _levels(num_classes, cfg, 2)
-    anchors = anchors_for_shape((SIZE, SIZE))
-    ec = et.EvalConfig(pre_nms_top_k=top_k, max_detections=40)
-    t_cls = [torch.from_numpy(x) for x in cls]
-    t_box = [torch.from_numpy(x) for x in box]
-    got = tn.batched_filter_from_level_logits(torch.from_numpy(anchors), t_box, t_cls, (SIZE, SIZE), ec)
-    concat = tn.batched_filter_from_logits(
-        torch.from_numpy(anchors),
-        torch.cat([x.reshape(2, -1, 4) for x in t_box], 1),
-        torch.cat([x.reshape(2, -1, num_classes) for x in t_cls], 1), (SIZE, SIZE), ec)
-    for g, w in zip(got, concat):
-        np.testing.assert_array_equal(g.numpy(), w.numpy())
-    want = jn.batched_filter_from_level_logits(
-        jnp.asarray(anchors), [jnp.asarray(x) for x in box], [jnp.asarray(x) for x in cls],
-        (SIZE, SIZE), JEvalConfig(pre_nms_top_k=top_k, max_detections=40), use_pallas=False)
-    for i in (0, 2, 3):
-        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
-    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0, atol=2e-7)
-    assert (got[3] > 0).all()
-
-
-def test_pixel_gather_matches_concat_on_the_model(tiny):
-    """Through the tiny model: the pixel prefilter and the concat front end
-    see the same head outputs, but nearest-upsampled BiFPN pixels give
-    bit-identical logits whose order the two break differently. Counts
-    exactly, scores to 1e-6 by rank (the JAX package's own check); a box or
-    class may differ only where the two scores are bit-identical (a tie)."""
+def test_predict_pipeline_refuses_an_unknown_front_end(tiny):
+    """Two front ends, ``"anchor_major"`` and ``"concat"``; any other name
+    is refused before the model runs."""
     *_, port = tiny
-    images = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (2, SIZE, SIZE, 3)).astype(np.uint8))
-    ec = et.EvalConfig(max_detections=30, pre_nms_top_k=256)
-    a = et.predict_pipeline(port, images, ec, front_end="concat")
-    b = et.predict_pipeline(port, images, ec, front_end="pixel_gather")
-    np.testing.assert_array_equal(a[3].numpy(), b[3].numpy())
-    for i in range(2):
-        n = int(a[3][i])
-        assert n > 0
-        np.testing.assert_allclose(b[1][i, :n].numpy(), a[1][i, :n].numpy(), rtol=0, atol=1e-6)
-        differ = (a[2][i, :n] != b[2][i, :n]) | (a[0][i, :n] != b[0][i, :n]).any(-1)
-        assert torch.equal(a[1][i, :n][differ], b[1][i, :n][differ])
+    images = torch.zeros((1, SIZE, SIZE, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="unknown front_end 'pixel_gather'"):
+        et.predict_pipeline(port, images, front_end="pixel_gather")
 
 
 # -- the Predictor -----------------------------------------------------------
