@@ -36,7 +36,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 4. pipeline: D0@512 (90 classes, random weights from seed 0), BN folded,
    three bf16 calls at batch 16 through make_predict_fn with the launch
    counters reset just before (2 head, 1 NMS, 32 conv epilogue launches
-   a call, 4 of them padded, and 16 depthwise launches); the detections
+   a call, 4 of them padded, 16 depthwise and 24 BiFPN node launches); the detections
    checked; then img/s at batch 128 bf16;
 5. gpu_vs_cpu: the same model in float32 (TF32 off) on the card and on the
    CPU (which takes the kernels' plain versions) at batch 2: raw head
@@ -78,6 +78,16 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    benchmark's batches each call's ms, the kernel's device ms, cuDNN's
    conv and the epilogue after it (library_ms), the SE's mean, and the
    bound of its bytes;
+9c. bifpn_node: csrc/bifpn_node.cu against its twin run in float32 (the
+   moved input's nearest upsample or SAME max-pool, the plain or weighted
+   sum and SiLU) on the inputs of every BiFPN node call of a folded
+   forward: D0@512 in float32 at batch 16 within a few float32 ulps (the
+   stated allowance), D0@512 b128, D4@1024 b64 and D7x@1536 b16 in bf16
+   within one ulp of the twin rounded once; 24, 56 and 80 launches a
+   forward; then at those batches each call's ms, the kernel's device ms,
+   ATen's resample and fusion (library_ms) and the bound of its bytes;
+   then portbench/readings_levels.py on d7x-b16 (one seed's levels P3..P8
+   against the float32 reference, the fp8 control beside);
 10. predictor: Predictor(phi=0) in f32 and bf16 at five source shapes
    (480x640, 640x480, 512x512, 1080x1920, 300x200): each shape's CUDA graph
    replay equal to the eager call on two images, ms per image (median of
@@ -286,7 +296,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NMS_OPS_PER_PAIR = 14
 
 SOURCES = ["head_pointwise", "nms_suppress", "fused_mbconv", "tap_floor", "conv_epilogue",
-           "depthwise_conv"]
+           "depthwise_conv", "bifpn_node"]
 D0_PIXELS = 64 * 64 + 32 * 32 + 16 * 16 + 8 * 8 + 4 * 4  # pixel rows per image at 512
 # the JAX tests' tiny MBConv cases (name, batch, side, cin, cexp, cout, k, se)
 MBCONV_TINY = [("tiny_exp_skip", 2, 16, 8, 48, 8, 3, 2),
@@ -312,6 +322,9 @@ EPILOGUE_STEPS = 10  # timed launches a shape (the twin: a fourth)
 # cells, each checked and timed at its batch
 DEPTHWISE_CELLS = ((0, 128), (4, 64), ("7x", 16))
 DEPTHWISE_STEPS = 10
+# the node op's phase: the same cells, and the seed of d7x-b16's levels
+NODE_STEPS = 10
+LEVELS_SEED = 1312312312
 FLOOR_REPEATS = 512
 FLOOR_STEPS = 10
 CHECK_BATCH = 16   # the kernels against their plain versions; the main-path calls
@@ -369,7 +382,8 @@ def phase_device(cuda_build):
 _MAIN_PATH_KERNELS = ("head_pw_resident_kernel", "head_pw_streamed_kernel", "head_pw_kernel",
                       "nms_suppress_kernel", "mbconv_pass_kernel", "mbconv_se_kernel",
                       "mbconv_rp_ring_kernel", "tap_floor_fma_f32", "tap_floor_fma_bf16",
-                      "tap_floor_swish_f32", "conv_epilogue_kernel", "depthwise_conv_kernel")
+                      "tap_floor_swish_f32", "conv_epilogue_kernel", "depthwise_conv_kernel",
+                      "bifpn_node_kernel")
 
 
 def _demangle(mangled):
@@ -632,7 +646,7 @@ def _check_detections(dets, num_classes, batch):
     return n
 
 
-def phase_pipeline(et, hk, nk, ce, dc, card, profile_dir):
+def phase_pipeline(et, hk, nk, ce, dc, bn, card, profile_dir):
     import torch
 
     model, cfg = et.build_efficientdet(0, num_classes=90, dtype=torch.bfloat16, seed=0)
@@ -646,6 +660,7 @@ def phase_pipeline(et, hk, nk, ce, dc, card, profile_dir):
     nk.suppression_keep_mask.launches = 0
     ce.conv_epilogue.launches = ce.conv_epilogue.padded = 0
     dc.depthwise_conv.launches = 0
+    bn.bifpn_node.launches = 0
     calls = 3
     for _ in range(calls):
         dets = predict(images)
@@ -655,10 +670,11 @@ def phase_pipeline(et, hk, nk, ce, dc, card, profile_dir):
                 "nms_suppress": nk.suppression_keep_mask.launches,
                 "conv_epilogue": ce.conv_epilogue.launches,
                 "conv_epilogue_padded": ce.conv_epilogue.padded,
-                "depthwise_conv": dc.depthwise_conv.launches}
+                "depthwise_conv": dc.depthwise_conv.launches,
+                "bifpn_node": bn.bifpn_node.launches}
     if launches != {"head_pointwise": 2 * calls, "nms_suppress": calls,
                     "conv_epilogue": 32 * calls, "conv_epilogue_padded": 4 * calls,
-                    "depthwise_conv": 16 * calls}:
+                    "depthwise_conv": 16 * calls, "bifpn_node": 24 * calls}:
         raise AssertionError(f"the main path did not go through its kernels: {launches}")
 
     big = torch.from_numpy(rng.randint(0, 256, (BENCH_BATCH, size, size, 3)).astype(np.uint8)).cuda()
@@ -1083,24 +1099,24 @@ def _op_record(rec, name):
     """One op's record from ``folded_ops.run``'s: the run's fields and the
     op's own, its calls left out."""
     return {**{k: v for k, v in rec.items() if k not in ("launches", "conv_epilogue",
-                                                         "depthwise_conv")},
+                                                         "depthwise_conv", "bifpn_node")},
             **{k: v for k, v in rec[name].items() if k != "calls"}}
 
 
 def phase_conv_epilogue(xf):
-    """The folded backbone's two ops against their twins at every call of
-    one folded D0@512 backbone forward in float32 at CHECK_BATCH and one in
-    bf16 at BENCH_BATCH; then the conv epilogue's time at the batch-128
-    shapes beside its bound and the twin's. Returns the phase's record and
-    the depthwise kernel's D0 results (its float32 check and its bf16 run)
-    for its own phase."""
+    """The folded model's ops against their twins at every call of one
+    folded D0@512 backbone and BiFPN forward in float32 at CHECK_BATCH and
+    one in bf16 at BENCH_BATCH; then the conv epilogue's time at the
+    batch-128 shapes beside its bound and the twin's. Returns the phase's
+    record and the D0 results of the other ops (every op's float32 check
+    and the bf16 run) for their own phases."""
     import torch
 
-    backbone, cfg = xf.folded_backbone(0, torch.float32)
+    model, cfg = xf.folded_model(0, torch.float32)
     images = xf.nhwc_images(CHECK_BATCH, cfg.image_size, torch.float32,
                             torch.Generator(device="cuda").manual_seed(3))
-    _, f32 = xf.forward_calls(backbone, images, check=xf.OPS)
-    del backbone, images
+    _, f32 = xf.forward_calls(model, images, check=xf.OPS)
+    del model, images
     torch.cuda.empty_cache()
     rec = xf.run(0, BENCH_BATCH, torch.bfloat16, EPILOGUE_STEPS)
     out = {"phase": "conv_epilogue", "f32_batch": CHECK_BATCH,
@@ -1117,7 +1133,7 @@ def phase_conv_epilogue(xf):
             or out["padded"] != 4):
         raise AssertionError(f"conv_epilogue: the kernel left its twin or the path: {out}")
     torch.cuda.empty_cache()
-    return out, (f32["depthwise_conv"], rec)
+    return out, (f32, rec)
 
 
 def phase_depthwise_conv(xf, d0):
@@ -1130,6 +1146,7 @@ def phase_depthwise_conv(xf, d0):
     import torch
 
     f32, d0_run = d0
+    f32 = f32["depthwise_conv"]
     out = {"phase": "depthwise_conv", "f32_batch": CHECK_BATCH, "f32_check": f32, "cells": {}}
     want = {"0": (16, 32), "4": (32, 63), "7x": (55, 107)}
     bad = f32["excess"] > 1 or f32["sums_excess"] > 1
@@ -1153,6 +1170,53 @@ def phase_depthwise_conv(xf, d0):
     emit(out)
     if bad:
         raise AssertionError(f"depthwise_conv: the kernel left its twin or the path: {out}")
+    return out
+
+
+def phase_bifpn_node(xf, d0):
+    """The BiFPN node kernel against its twin run in float32 at every node
+    call of a folded forward (D0 in float32 at CHECK_BATCH; the benchmark's
+    inference cells in bf16 at their batches), then its time there beside
+    its bound and ATen's resample and fusion; then d7x-b16's levels P3..P8
+    against the float32 reference (``portbench/readings_levels.py``, one
+    seed). ``d0``: D0's float32 checks and bf16 run, from phase
+    conv_epilogue's forwards."""
+    import torch
+
+    f32, d0_run = d0
+    f32 = f32["bifpn_node"]
+    out = {"phase": "bifpn_node", "f32_batch": CHECK_BATCH, "f32_check": f32, "cells": {}}
+    want = {"0": 24, "4": 56, "7x": 80}
+    bad = f32["excess"] > 1
+    for phi, batch in DEPTHWISE_CELLS:
+        rec = d0_run if (phi, batch) == (0, BENCH_BATCH) else xf.run(
+            phi, batch, torch.bfloat16, NODE_STEPS, ops=("bifpn_node",))
+        cell = {"launches": rec["launches"]["bifpn_node.launches"],
+                **_op_record(rec, "bifpn_node")}
+        out["cells"][str(phi)] = cell
+        bad |= (cell["check"]["excess"] > 1 or cell["check"]["ulps"] > 1
+                or cell["launches"] != want[str(phi)])
+        torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "portbench", "readings_levels.py"), "--workload",
+         "d7x-b16", "--levels-seed", str(LEVELS_SEED)],
+        capture_output=True, text=True, timeout=1200, cwd=ROOT)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"readings_levels.py exited {proc.returncode}: {proc.stderr[-2000:]}")
+    levels = lines[-1]["levels"]
+    out["d7x_levels"] = {"seed": LEVELS_SEED, "fusion_nodes": levels["fusion_nodes"],
+                         **{side: levels[side] for side in ("port", "control")}}
+    out["note"] = ("check: the worst over each forward's calls (excess: the distance from the twin "
+                   "run in float32 over its stated allowance; ulps against the twin rounded once, "
+                   "bf16); ms the launches by CUDA events, device_ms the kernel by "
+                   "torch.profiler, library_ms ATen's resample and fusion, bound_ms the bytes at "
+                   "3.35 TB/s, each summed over a forward's calls at the batch; d7x_levels: each "
+                   "tap's and level's largest gap from the float32 reference over its largest "
+                   "magnitude, the port's and the fp8 control's")
+    emit(out)
+    if bad or out["d7x_levels"]["fusion_nodes"] != {"sum": 80, "weighted": 0}:
+        raise AssertionError(f"bifpn_node: the kernel left its twin or the path: {out}")
     return out
 
 
@@ -3969,6 +4033,7 @@ def main() -> int:
     if args.stages_child:
         return stages_child(args.stages_child)
     import efficientdet_tpu_torch as et
+    import efficientdet_tpu_torch.ops.bifpn_node as bn
     import efficientdet_tpu_torch.ops.conv_epilogue as ce
     import efficientdet_tpu_torch.ops.depthwise_conv as dc
     import efficientdet_tpu_torch.ops.head_kernel as hk
@@ -3986,7 +4051,7 @@ def main() -> int:
     card = run_phase("device", phase_device, cuda_build)
     head_err, head_t = run_phase("head_kernel", phase_head, hk)
     nms_t = run_phase("nms_kernel", phase_nms, nk)
-    launches, ms_per_call = run_phase("pipeline", phase_pipeline, et, hk, nk, ce, dc, card,
+    launches, ms_per_call = run_phase("pipeline", phase_pipeline, et, hk, nk, ce, dc, bn, card,
                                         args.profile_dir)
     run_phase("gpu_vs_cpu", phase_gpu_vs_cpu, et, tn)
     mb_err, mb_blocks, harness = run_phase("mbconv_kernels", phase_mbconv, mk, pm)
@@ -3995,6 +4060,7 @@ def main() -> int:
         "tap_floor", phase_tap_floor, tk, tf, chains[0]["baseline_ms"], ms_per_call)
     epi, d0 = run_phase("conv_epilogue", phase_conv_epilogue, xf)
     dwc = run_phase("depthwise_conv", phase_depthwise_conv, xf, d0)
+    node = run_phase("bifpn_node", phase_bifpn_node, xf, d0)
     run_phase("predictor", phase_predictor, et, nk, card)
     run_phase("serve", phase_serve, et, hk, nk, card)
     export_launches = run_phase("export", phase_export, et, hk, nk, card)
@@ -4093,6 +4159,15 @@ def main() -> int:
          **{f"d{phi}_{key}": c[key] for phi, c in dwc["cells"].items()
             for key in ("ms", "device_ms", "bound_ms", "library_ms", "mean_ms", "roofline")},
          "bound_by": "bytes", "plain_ms": None},
+        {"name": "bifpn_node", "route": "cuda",
+         "source": "efficientdet_tpu_torch/csrc/bifpn_node.cu",
+         "replaces": None, "launches": launches["bifpn_node"],
+         "f32_excess": node["f32_check"]["excess"],
+         "f32_max_abs_err": node["f32_check"]["max_abs_err"],
+         "bf16_ulps": max(c["check"]["ulps"] for c in node["cells"].values()),
+         **{f"d{phi}_{key}": c[key] for phi, c in node["cells"].items()
+            for key in ("ms", "device_ms", "bound_ms", "library_ms", "roofline")},
+         "bound_by": "bytes", "plain_ms": None},
     ], "note": "head_pointwise, nms_suppress: ms per main-path call at batch 128 (head: the "
                "class and the box launch together), the wrapper's call by CUDA events; "
                "device_ms the kernels alone, by torch.profiler; launches over 3 pipeline calls. "
@@ -4127,7 +4202,10 @@ def main() -> int:
                "conv, its epilogue and the SE's reduction); launches over the same 3 pipeline "
                "calls (16 a call); d<phi>_*: summed over one forward's calls at the benchmark's "
                "batch (D0 128, D4 64, D7x 16), bf16; library_ms cuDNN's depthwise conv and the "
-               "epilogue, mean_ms the SE's torch.mean they replace.",
+               "epilogue, mean_ms the SE's torch.mean they replace. bifpn_node: replaces no TPU "
+               "kernel (XLA fuses a node's resample, sum and swish); launches over the same 3 "
+               "pipeline calls (24 a call); d<phi>_*: summed over one forward's node calls at "
+               "the benchmark's batch, bf16; library_ms ATen's resample and fusion it replaces.",
         "elapsed_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

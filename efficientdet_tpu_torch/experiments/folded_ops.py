@@ -1,21 +1,25 @@
-"""The folded backbone's custom ops on the card, call by call.
+"""The folded model's custom ops on the card, call by call.
 
-With grad off a BN-folded backbone finishes its convs in two custom ops,
-functions of ``models/efficientnet.py`` that :data:`OPS` names:
+With grad off a BN-folded model finishes its backbone's convs in two custom
+ops, functions of ``models/efficientnet.py``, and runs each BiFPN node in a
+third, a function of ``models/bifpn.py``; :data:`OPS` names them:
 ``conv_epilogue`` (``ops/conv_epilogue.py``: the stem, expand and project
 convs' bias, SiLU, residual and stride-2 SAME pad; its twin is ATen's add,
-silu, add and pad) and ``depthwise_conv`` (``ops/depthwise_conv.py``: the
+silu, add and pad), ``depthwise_conv`` (``ops/depthwise_conv.py``: the
 depthwise conv, bias, SiLU and the SE's channel sums; its baselines are
-cuDNN's conv with the epilogue after it and the SE's mean). An op's entry
-(:class:`FoldedOp`) holds what is its own: its call's fields, its check,
-its traffic and its baselines. :func:`recording` keeps every op's calls and
-checks those asked for; :func:`forward_calls` does so over one forward;
-:func:`time_calls` times one op at the recorded shapes beside its bound and
-its baselines; :func:`run` does all of it for one phi and batch.
+cuDNN's conv with the epilogue after it and the SE's mean) and
+``bifpn_node`` (``ops/bifpn_node.py``: a node's moved input resampled, the
+plain or weighted sum and SiLU; its baseline is ATen's resample and fusion).
+An op's entry (:class:`FoldedOp`) holds what is its own: the model module
+that calls it, its call's fields, its check, its traffic and its baselines.
+:func:`recording` keeps every op's calls and checks those asked for;
+:func:`forward_calls` does so over one forward of the backbone and the
+BiFPN; :func:`time_calls` times one op at the recorded shapes beside its
+bound and its baselines; :func:`run` does all of it for one phi and batch.
 
     python -m efficientdet_tpu_torch.experiments.folded_ops [--phi 0] [--batch 128]
 
-prints one JSON line: both ops' calls, checks and times summed over a forward.
+prints one JSON line: every op's calls, checks and times summed over a forward.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, NamedTuple, Optiona
 import torch
 import torch.nn.functional as F
 
+from ..ops import bifpn_node as bn
 from ..ops import conv_epilogue as ce
 from ..ops import depthwise_conv as dc
 from .timing import PEAK_F32_CUDA_CORES, bound, cuda_ms
@@ -46,8 +51,8 @@ def nhwc_images(batch: int, size: int, dtype, generator, device="cuda") -> torch
                        device=device).to(dtype).permute(0, 3, 1, 2)
 
 
-def folded_backbone(phi, dtype: torch.dtype, seed: int = 0, device="cuda"):
-    """(backbone, config) of D``phi`` on ``device``, BN folded, from drawn
+def folded_model(phi, dtype: torch.dtype, seed: int = 0, device="cuda"):
+    """(model, config) of D``phi`` on ``device``, BN folded, from drawn
     weights with calibrated BN statistics (``drawn_weights.py``), so that
     every conv's folded bias is far from zero (an initialised model's BNs
     fold to zero biases, which no rounding of ``x + bias`` would show)."""
@@ -57,7 +62,7 @@ def folded_backbone(phi, dtype: torch.dtype, seed: int = 0, device="cuda"):
     state = drawn_model(device, seed, phi=phi, gain=1.0, calibrate=True).state_dict()
     model, cfg = build_efficientdet(phi, dtype=dtype, device=device)
     model.load_state_dict(state)
-    return fuse_for_inference(model).backbone, cfg
+    return fuse_for_inference(model), cfg
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -290,13 +295,123 @@ def _depthwise_setup(call: DepthwiseCall, dtype: torch.dtype, gen):
     return launch, {"library_ms": library, "mean_ms": mean}
 
 
+# --------------------------------------------------------------- bifpn_node
+
+
+class NodeCall(NamedTuple):
+    shape: Tuple[int, int, int, int]  # the node's output (B, C, H, W)
+    kept: int                         # inputs at the node's level, 1 or 2
+    up: bool                          # top-down (the moved input upsampled) or bottom-up
+    weighted: bool
+    channels_last: bool
+
+
+def node_check(out: torch.Tensor, kept: Sequence[torch.Tensor], moved: torch.Tensor, up: bool,
+               weights: Optional[torch.Tensor], chunk: int = 8) -> Dict[str, float]:
+    """The node kernel's output ``out`` against the twin run in float32 on
+    the same (rounded) inputs, ``chunk`` images at a time: the weights formed
+    as ``fuse`` forms them and cast to the maps' dtype, the resample exact,
+    the products and sums in ``fuse``'s order, left unrounded. ``excess``:
+    ``|out - twin|`` over its allowance, which passes at 1 or under: two
+    float32 sums of the n products in different orders (or with weights a
+    float32 ulp apart) lie within ``n 2^-23 sum |w_i x_i|`` of each other;
+    SiLU's slope is at most 1.1; bf16 adds the fast SiLU's 2^-21 of the
+    value and half an ulp, its one rounding. ``max_abs_err`` beside (0 where
+    float32 equals the twin bit for bit) and, bf16 only, ``ulps``: the
+    distance from the twin rounded once."""
+    n = len(kept) + 1
+    dtype = out.dtype
+    if weights is not None:
+        w = F.relu(weights.float())
+        w = (w / (w.sum() + bn.FUSION_EPS)).to(dtype).float()
+    worst: Dict[str, float] = {"excess": 0.0, "max_abs_err": 0.0}
+    h, wd = out.shape[-2:]
+    for i in range(0, out.shape[0], chunk):
+        xs = [t[i:i + chunk].float() for t in kept]
+        xs.append(bn.resampled(moved[i:i + chunk].float(), h, wd, up))
+        terms = xs if weights is None else [w[j] * x for j, x in enumerate(xs)]
+        acc, mag = terms[0], terms[0].abs()
+        for t in terms[1:]:
+            acc, mag = acc + t, mag + t.abs()
+        del xs, terms
+        want = F.silu(acc)
+        del acc
+        got = out[i:i + chunk].float()
+        allow = SILU_SLOPE * n * 2 * U32 * mag + 1e-30
+        del mag
+        if dtype == torch.bfloat16:
+            allow += SILU_REL * want.abs() + _bf16_half_ulp(torch.maximum(got.abs(), want.abs()))
+            worst["ulps"] = max(worst.get("ulps", 0), bf16_ulps(out[i:i + chunk],
+                                                                want.to(torch.bfloat16)))
+        err = (got - want).abs()
+        worst["max_abs_err"] = max(worst["max_abs_err"], float(err.max()))
+        worst["excess"] = max(worst["excess"], float((err / allow).max()))
+        del want, got, allow, err
+    return worst
+
+
+def _node_call(kept, moved, up, weights) -> NodeCall:
+    return NodeCall(tuple(kept[0].shape), len(kept), up, weights is not None,
+                    ce.channels_last(kept[0]))
+
+
+def _node_checked(fn, kept, moved, up, weights):
+    out = fn(kept, moved, up, weights)
+    return out, node_check(out, kept, moved, up, weights)
+
+
+def _moved_shape(call: NodeCall) -> Tuple[int, int, int, int]:
+    b, c, h, w = call.shape
+    return (b, c, h // 2, w // 2) if call.up else (b, c, 2 * h, 2 * w)
+
+
+def _node_traffic(call: NodeCall, dtype: torch.dtype) -> Tuple[int, int]:
+    """(bytes, operations) one call must move and do: each kept input read
+    once, the moved input read once at its own level, the output written
+    once, the float32 weights read once; its few operations an element
+    bound no call."""
+    b, c, h, w = call.shape
+    item = torch.empty((), dtype=dtype).element_size()
+    n_moved = b * c * (h * w // 4 if call.up else 4 * h * w)
+    nbytes = item * ((call.kept + 1) * b * c * h * w + n_moved)
+    return nbytes + (4 * (call.kept + 1) if call.weighted else 0), 0
+
+
+def node_inputs(call: NodeCall, dtype, gen, device="cuda"):
+    """(kept, moved, weights) drawn at ``call``'s shapes on ``device``."""
+    fmt = torch.channels_last if call.channels_last else torch.contiguous_format
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
+            memory_format=fmt)
+
+    kept = [draw(call.shape) for _ in range(call.kept)]
+    weights = (torch.rand(call.kept + 1, generator=gen, device=device) * 2 - 0.5
+               if call.weighted else None)
+    return kept, draw(_moved_shape(call)), weights
+
+
+def _node_setup(call: NodeCall, dtype: torch.dtype, gen):
+    kept, moved, weights = node_inputs(call._replace(channels_last=True), dtype, gen)
+    out = torch.empty_like(kept[0], memory_format=torch.channels_last)
+
+    def launch():
+        bn.launch_into(kept, moved, call.up, weights, out)
+
+    def library():
+        return bn.bifpn_node_reference(kept, moved, call.up, weights)
+
+    return launch, {"library_ms": library}
+
+
 # ------------------------------------------------------------------ shared
 
 
 class FoldedOp(NamedTuple):
     """What is one op's own. Its name in :data:`OPS` is the name of ``fn``,
-    which ``models/efficientnet.py`` calls, and ``<name>_kernel`` is its
+    which the model's module ``module`` calls, and ``<name>_kernel`` is its
     kernel in a trace."""
+    module: str          # the module of ``models/`` that calls ``fn``
     fn: Callable         # ops/<name>.py's function, which holds the launch counters
     counters: Tuple[str, ...]
     call: Callable       # the model's arguments -> the call's fields
@@ -306,10 +421,14 @@ class FoldedOp(NamedTuple):
 
 
 OPS: Dict[str, FoldedOp] = {
-    "conv_epilogue": FoldedOp(ce.conv_epilogue, ("launches", "padded"), _epilogue_call,
-                              _epilogue_checked, _epilogue_traffic, _epilogue_setup),
-    "depthwise_conv": FoldedOp(dc.depthwise_conv, ("launches",), _depthwise_call,
-                               _depthwise_checked, _depthwise_traffic, _depthwise_setup),
+    "conv_epilogue": FoldedOp("efficientnet", ce.conv_epilogue, ("launches", "padded"),
+                              _epilogue_call, _epilogue_checked, _epilogue_traffic,
+                              _epilogue_setup),
+    "depthwise_conv": FoldedOp("efficientnet", dc.depthwise_conv, ("launches",),
+                               _depthwise_call, _depthwise_checked, _depthwise_traffic,
+                               _depthwise_setup),
+    "bifpn_node": FoldedOp("bifpn", bn.bifpn_node, ("launches",), _node_call, _node_checked,
+                           _node_traffic, _node_setup),
 }
 
 
@@ -321,14 +440,15 @@ def counts() -> Dict[str, int]:
 @contextlib.contextmanager
 def hooked(name: str, hook) -> Iterator[None]:
     """Route the model's calls of op ``name`` through ``hook(fn, *args)``."""
-    from ..models import efficientnet
+    import importlib
 
-    fn = getattr(efficientnet, name)
-    setattr(efficientnet, name, lambda *args: hook(fn, *args))
+    module = importlib.import_module(f"..models.{OPS[name].module}", __package__)
+    fn = getattr(module, name)
+    setattr(module, name, lambda *args: hook(fn, *args))
     try:
         yield
     finally:
-        setattr(efficientnet, name, fn)
+        setattr(module, name, fn)
 
 
 Calls = Dict[str, List[NamedTuple]]  # by op name
@@ -363,12 +483,13 @@ def recording(check: Iterable[str] = ()) -> Iterator[Tuple[Calls, Worst]]:
         yield calls, worst
 
 
-def forward_calls(backbone, images: torch.Tensor,
+def forward_calls(model, images: torch.Tensor,
                   check: Iterable[str] = ()) -> Tuple[Calls, Worst]:
-    """One forward of the folded ``backbone`` with grad off: every op's
-    calls, and the worst of each check of the ops in ``check``."""
+    """One forward of the folded ``model``'s backbone and BiFPN on NCHW
+    ``images`` with grad off: every op's calls, and the worst of each check
+    of the ops in ``check``."""
     with recording(check) as (calls, worst), torch.inference_mode():
-        backbone(images)
+        model.bifpn(list(model.backbone(images)))
     return calls, worst
 
 
@@ -420,20 +541,20 @@ def time_calls(name: str, calls: Sequence[NamedTuple], dtype: torch.dtype, steps
 
 def run(phi=0, batch: int = 128, dtype: torch.dtype = torch.bfloat16, steps: int = 20,
         check_batch: Optional[int] = None, ops: Iterable[str] = tuple(OPS)) -> Dict[str, object]:
-    """D``phi`` folded at its size (:func:`folded_backbone`): one forward at
+    """D``phi`` folded at its size (:func:`folded_model`): one forward at
     ``check_batch`` (``batch`` when None; channels-last images, as the
     detector's), its launch counts (``launches``, by counter) and each of
     ``ops`` checked call by call; then each of ``ops`` timed at its calls'
     shapes at ``batch`` (:func:`time_calls`), under the op's name with its
     calls and its check."""
     ops = tuple(ops)
-    backbone, cfg = folded_backbone(phi, dtype)
+    model, cfg = folded_model(phi, dtype)
     gen = torch.Generator(device="cuda").manual_seed(1)
     images = nhwc_images(check_batch or batch, cfg.image_size, dtype, gen)
     before = counts()
-    calls, worst = forward_calls(backbone, images, check=ops)
+    calls, worst = forward_calls(model, images, check=ops)
     launches = {k: v - before[k] for k, v in counts().items()}
-    del images, backbone
+    del images, model
     torch.cuda.empty_cache()
     out: Dict[str, object] = {"phi": str(phi), "batch": batch, "check_batch": check_batch or batch,
                               "dtype": str(dtype).split(".")[-1], "launches": launches}

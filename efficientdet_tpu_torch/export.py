@@ -3,14 +3,16 @@
 Counterpart of the JAX package's ``export.py``. ``torch.export`` traces the
 whole batched predict program (uint8 normalise -> BN-folded forward ->
 decode -> per-class NMS, ``front_end="anchor_major"``) at one static input
-shape into an ``ExportedProgram``. The head, NMS, conv-epilogue and
-depthwise kernels appear in it as the custom ops
+shape into an ``ExportedProgram``. The head, NMS, conv-epilogue,
+depthwise and BiFPN node kernels appear in it as the custom ops
 ``efficientdet_tpu_torch::head_pointwise``,
 ``efficientdet_tpu_torch::nms_keep_mask``,
-``efficientdet_tpu_torch::conv_epilogue_`` / ``conv_epilogue_padded`` and
-``efficientdet_tpu_torch::depthwise_conv_silu`` (ops/head_kernel.py,
-ops/nms_kernel.py, ops/conv_epilogue.py, ops/depthwise_conv.py), so the
-serving host needs torch, those four modules and this loader, and no
+``efficientdet_tpu_torch::conv_epilogue_`` / ``conv_epilogue_padded``,
+``efficientdet_tpu_torch::depthwise_conv_silu`` and
+``efficientdet_tpu_torch::bifpn_node`` (ops/head_kernel.py,
+ops/nms_kernel.py, ops/conv_epilogue.py, ops/depthwise_conv.py,
+ops/bifpn_node.py), so the serving host needs torch, those five modules
+and this loader, and no
 model-construction code: the artifact pins the anchor
 layout, the NMS thresholds and the front end at export time.
 
@@ -196,8 +198,8 @@ def load_exported(path: str, device=None):
     builds no model.
     """
     from .models.detector import resolve_device
-    from .ops import (conv_epilogue, depthwise_conv, head_kernel,  # noqa: F401 — the
-                      nms_kernel)  # program's ops
+    from .ops import (bifpn_node, conv_epilogue, depthwise_conv,  # noqa: F401 — the
+                      head_kernel, nms_kernel)  # program's ops
 
     device = resolve_device(device)
     with zipfile.ZipFile(path, "r") as zf:

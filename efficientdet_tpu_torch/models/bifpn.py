@@ -22,9 +22,16 @@ once a layer; for P3..P7 it gives the eight nodes, names and order of the
 five-level BiFPN, so D0..D7 weights load unchanged. With ``remat`` each
 layer is recomputed in the backward pass (models/remat.py).
 
-Spans (``utils/profiling.span``): ``bifpn.fuse`` around each node's sum and
-swish, ``bifpn.resample`` around each upsample and max-pool between levels.
-:func:`fuse` counts the nodes it runs in ``fuse.sum`` and ``fuse.weighted``.
+Where a node's BN is folded and it runs with grad off (:func:`node_folds`),
+one op of ``ops/bifpn_node.py`` resamples its moved input, fuses and swishes
+in one pass (the kernel reads the moved input at its own level); elsewhere
+ATen resamples it and :func:`fuse` follows.
+
+Spans (``utils/profiling.span``): ``bifpn.fuse`` around each node's pass,
+the moved input's resample included where the op takes it, else its sum and
+swish; ``bifpn.resample`` around the first layer's pools to P6 and up and
+each resample the op does not take. Every node counts in ``fuse.sum`` or
+``fuse.weighted``, whichever path runs it.
 """
 
 from __future__ import annotations
@@ -32,38 +39,56 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bifpn_node import bifpn_node, fusion
 from ..ops.resample import downsample_maxpool, upsample_to
+from ..parallel.context import active_context
 from ..utils.profiling import span
 from .conv import Conv2d, SeparableConv
 from .normalization import TpuBatchNorm
 from .remat import remat as _remat
 
-FUSION_EPS = 1e-4
+
+def _count(weights: Optional[torch.Tensor]) -> None:
+    if weights is None:
+        fuse.sum += 1
+    else:
+        fuse.weighted += 1
 
 
 def fuse(inputs: Sequence[torch.Tensor], weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One node's fusion and swish: the inputs summed, relu-weighted with
     fast normalisation where ``weights`` is given."""
-    if weights is None:
-        fuse.sum += 1
-        x = inputs[0]
-        for t in inputs[1:]:
-            x = x + t
-    else:
-        fuse.weighted += 1
-        w = F.relu(weights)
-        w = (w / (w.sum() + FUSION_EPS)).to(inputs[0].dtype)
-        x = w[0] * inputs[0]
-        for i in range(1, len(inputs)):
-            x = x + w[i] * inputs[i]
-    return F.silu(x)
+    _count(weights)
+    return fusion(inputs, weights)
 
 
 fuse.sum = 0
 fuse.weighted = 0
+
+
+def node_folds(node: "FusedNode", kept: Sequence[torch.Tensor], moved: torch.Tensor,
+               up: bool) -> bool:
+    """Whether the node takes the one-pass op (ops/bifpn_node.py): its BN
+    folded, grad off, on the CPU (the op's twin) or the card, float32 or
+    bf16 maps of one dtype with C a multiple of 8, each fine size exactly
+    twice the coarse one, float32 fusion weights, and no map a band of a
+    spatial context (its halo comes from the neighbouring ranks). Training,
+    remat, the unfused model, banded maps and other sizes keep ATen's
+    resample and :func:`fuse`. The layout is not asked: the op copies any
+    but channels-last, the detector's own."""
+    x = kept[0]
+    fine, coarse = (x, moved) if up else (moved, x)
+    ctx = active_context()
+    return (isinstance(node.bn, nn.Identity) and not torch.is_grad_enabled()
+            and x.device.type in ("cpu", "cuda") and x.dtype in (torch.float32, torch.bfloat16)
+            and x.shape[1] % 8 == 0
+            and all(t.shape == x.shape and t.dtype == x.dtype for t in kept)
+            and moved.dtype == x.dtype and moved.shape[:2] == x.shape[:2]
+            and fine.shape[-2] == 2 * coarse.shape[-2] and fine.shape[-1] == 2 * coarse.shape[-1]
+            and (not node.weighted or node.fusion_weights.dtype == torch.float32)
+            and not (ctx is not None and any(ctx.banded(t) for t in (*kept, moved))))
 
 
 class FusedNode(nn.Module):
@@ -84,6 +109,24 @@ class FusedNode(nn.Module):
             raise ValueError(f"expected {self.num_inputs} inputs, got {len(inputs)}")
         with span("bifpn.fuse"):
             x = fuse(inputs, self.fusion_weights if self.weighted else None)
+        return self.bn(self.conv(x))
+
+    def resampling(self, kept: Sequence[torch.Tensor], moved: torch.Tensor,
+                   up: bool) -> torch.Tensor:
+        """The node on its level's inputs ``kept`` and ``moved`` from the
+        level above (``up``: upsampled to kept[0]'s size) or below
+        (max-pooled): one op where :func:`node_folds`, else ATen's resample
+        and :meth:`forward`."""
+        if len(kept) + 1 != self.num_inputs or not node_folds(self, kept, moved, up):
+            with span("bifpn.resample"):
+                ref = kept[0]
+                moved = (upsample_to(moved, ref.shape[-2], ref.shape[-1]) if up
+                         else downsample_maxpool(moved))
+            return self(list(kept) + [moved])
+        weights = self.fusion_weights if self.weighted else None
+        _count(weights)
+        with span("bifpn.fuse"):
+            x = bifpn_node(kept, moved, up, weights)
         return self.bn(self.conv(x))
 
 
@@ -140,9 +183,9 @@ class BiFPNLayer(nn.Module):
             top_down = j < n - 1
             if not top_down and level in bu_skip:
                 ids = (bu_skip[level],) + ids[1:]
-            # (node, inputs taken as they are, the input resampled, the
-            # input whose shape an upsample takes, upsample or max-pool)
-            steps.append((node, ids[:-1], ids[-1], ids[0], top_down))
+            # (node, inputs taken as they are, the input resampled, upsample
+            # or max-pool); an upsample takes the first input's size
+            steps.append((node, ids[:-1], ids[-1], top_down))
         self._steps = tuple(steps)
         self._out = n + extra + n - 2  # the graph's index of P3's output
 
@@ -164,14 +207,8 @@ class BiFPNLayer(nn.Module):
             graph += (p4_in_bu, p5_in_bu)
         else:
             graph = list(feats)
-        for node, kept, src, like, top_down in self._steps:
-            with span("bifpn.resample"):
-                if top_down:
-                    ref = graph[like]
-                    moved = upsample_to(graph[src], ref.shape[-2], ref.shape[-1])
-                else:
-                    moved = downsample_maxpool(graph[src])
-            graph.append(node([graph[i] for i in kept] + [moved]))
+        for node, kept, src, top_down in self._steps:
+            graph.append(node.resampling([graph[i] for i in kept], graph[src], top_down))
         return graph[self._out:]
 
 

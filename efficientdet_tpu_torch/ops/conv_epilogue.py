@@ -83,10 +83,15 @@ def channels_last(x: torch.Tensor) -> bool:
     return not x.is_contiguous() and x.is_contiguous(memory_format=torch.channels_last)
 
 
+def layout(x: torch.Tensor) -> torch.memory_format:
+    """``x``'s layout, which an op's output keeps."""
+    return torch.channels_last if channels_last(x) else torch.contiguous_format
+
+
 def empty_padded(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
     """An uninitialised buffer of x's padded shape, in x's layout."""
-    fmt = torch.channels_last if channels_last(x) else torch.contiguous_format
-    return torch.empty(padded_shape(x, pads), dtype=x.dtype, device=x.device, memory_format=fmt)
+    return torch.empty(padded_shape(x, pads), dtype=x.dtype, device=x.device,
+                       memory_format=layout(x))
 
 
 @torch.library.custom_op("efficientdet_tpu_torch::conv_epilogue_", mutates_args=("x",),

@@ -40,7 +40,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .conv_epilogue import channels_last, conv_epilogue_reference
+from .conv_epilogue import conv_epilogue_reference, layout
 
 KERNEL_SIZES = (3, 5)
 STRIDES = (1, 2)
@@ -130,11 +130,6 @@ def bands(ho: int, th: int) -> int:
     return -(-ho // th)
 
 
-def _layout(x: torch.Tensor) -> torch.memory_format:
-    """``x``'s layout, which the output keeps."""
-    return torch.channels_last if channels_last(x) else torch.contiguous_format
-
-
 def _plan_of(x: torch.Tensor, weight: torch.Tensor, stride: int,
              pads: Sequence[int]) -> Tuple[Plan, int, int]:
     # the shapes as ints: a trace's symbolic sizes specialise to the plan's
@@ -155,7 +150,7 @@ def depthwise_conv_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.
         y = F.conv2d(x, weight, None, stride, pads[0], 1, c)
     else:
         y = F.conv2d(F.pad(x, (pads[2], pads[3], pads[0], pads[1])), weight, None, stride, 0, 1, c)
-    y = conv_epilogue_reference(y, bias, None, True).contiguous(memory_format=_layout(x))
+    y = conv_epilogue_reference(y, bias, None, True).contiguous(memory_format=layout(x))
     b, _, ho, wo = y.shape
     th = _plan_of(x, weight, stride, pads)[0].th
     n = bands(ho, th)
@@ -203,14 +198,14 @@ def _empty_outputs(x, weight, stride, pads, fmt=torch.channels_last):
 
 @_depthwise_conv_op.register_fake
 def _depthwise_conv_fake(x, weight, bias, stride, pads):
-    return _empty_outputs(x, weight, stride, pads, _layout(x))
+    return _empty_outputs(x, weight, stride, pads, layout(x))
 
 
 @_depthwise_conv_op.register_kernel("cuda")
 def _depthwise_conv_cuda(x, weight, bias, stride, pads):
     # the kernel reads and writes channels-last: the detector's maps are (a
     # trace may have seen another layout; then these copies run)
-    fmt = _layout(x)
+    fmt = layout(x)
     x = x.contiguous(memory_format=torch.channels_last)
     y, sums = _empty_outputs(x, weight, stride, pads)
     launch_into(x, weight, bias, stride, pads, y, sums)

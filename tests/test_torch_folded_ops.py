@@ -1,16 +1,17 @@
-"""The folded backbone's custom ops against their twins, and their contracts.
+"""The folded model's custom ops against their twins, and their contracts.
 
 Each case names its op; :data:`HELD` holds what each op's cases run
 (scaffolding in ``tests/torch_folded.py``). On the CPU the ops run their
 plain twins, held to the sequence the folded model ran before (the
 epilogue: ATen's add, silu, add and pad, bit for bit; the depthwise conv:
 ``F.conv2d`` and the epilogue's twin bit for bit, ``torch.mean`` within the
-stated tolerance) at every call of a folded forward and at edge shapes, in
-float32 and bf16; the depthwise plan's tiles; ``opcheck``, the fakes and the
-launchers' refusals. The ``cuda``-marked tests (``python -m pytest
---noconftest -q -m cuda tests/test_torch_folded_ops.py`` on a card) hold
-each kernel to its rule (``experiments/folded_ops``) at every call of D0,
-D4 and D7x forwards, at D4's largest call of each op and at the edges.
+stated tolerance; the BiFPN node: ATen's upsample or padded max-pool and
+``fuse``'s ops, bit for bit) at every call of a folded forward and at edge
+shapes, in float32 and bf16; the depthwise plan's tiles; ``opcheck``, the
+fakes and the launchers' refusals. The ``cuda``-marked tests (``python -m
+pytest --noconftest -q -m cuda tests/test_torch_folded_ops.py`` on a card)
+hold each kernel to its rule (``experiments/folded_ops``) at every call of
+D0, D4 and D7x forwards, at D4's largest call of each op and at the edges.
 """
 
 import itertools
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from efficientdet_tpu_torch.experiments import folded_ops as xf
+from efficientdet_tpu_torch.ops import bifpn_node as bn
 from efficientdet_tpu_torch.ops import conv_epilogue as ce
 from efficientdet_tpu_torch.ops import depthwise_conv as dc
 from torch_folded import (
@@ -33,7 +35,7 @@ from torch_folded import (
     cpu_images,
     folded_calls,
     need_cuda,
-    random_folded_backbone,
+    random_folded_model,
 )
 
 U32 = 2.0 ** -24
@@ -325,6 +327,165 @@ def _depthwise_edges_on_the_gpu(dtype):
         assert worst["excess"] <= 1.0 and worst["sums_excess"] <= 1.0, (shape, worst)
 
 
+# -------------------------------------------------------- the BiFPN node
+
+
+def _node_plain(kept, moved, up, weights):
+    """The folded model's ops before the node kernel, written out: ATen's
+    nearest upsample, or the -inf SAME pad and the 3x3 stride-2 max-pool,
+    then ``fuse``'s weighted or plain sum and ``silu``."""
+    h, w = kept[0].shape[-2:]
+    if up:
+        moved = F.interpolate(moved, scale_factor=2.0, mode="nearest")
+    else:
+        moved = F.max_pool2d(F.pad(moved, (0, 1, 0, 1), value=float("-inf")), 3, 2)
+    assert moved.shape[-2:] == (h, w)
+    inputs = list(kept) + [moved]
+    if weights is None:
+        x = inputs[0]
+        for t in inputs[1:]:
+            x = x + t
+    else:
+        wn = F.relu(weights)
+        wn = (wn / (wn.sum() + 1e-4)).to(inputs[0].dtype)
+        x = wn[0] * inputs[0]
+        for i in range(1, len(inputs)):
+            x = x + wn[i] * inputs[i]
+    return F.silu(x)
+
+
+def _node_inputs(call, dtype, seed, layout="nhwc"):
+    call = call._replace(channels_last=layout == "nhwc")
+    kept, moved, weights = xf.node_inputs(call, dtype, torch.Generator().manual_seed(seed), "cpu")
+    return [t * 2 for t in kept], moved * 2, weights
+
+
+def _assert_node_matches_plain(kept, moved, up, weights):
+    got = bn.bifpn_node(kept, moved, up, weights)
+    assert got.dtype == kept[0].dtype and torch.equal(got, _node_plain(kept, moved, up, weights))
+    assert got.is_contiguous(memory_format=LAYOUTS["nhwc" if ce.channels_last(kept[0])
+                                                   else "nchw"])
+
+
+def _node_calls(phi):
+    """Every node call of a D``phi`` forward (D0 and D4 at 128 px, D7x at
+    256: its P8 at 1 x 1)."""
+    return list(enumerate(folded_calls(phi)[0]["bifpn_node"]))
+
+
+def _node_twin_at_call(call, dtype, seed):
+    """On inputs drawn at the call's shape: the twin equals ATen's resample
+    and ``fuse``'s ops bit for bit."""
+    assert call.channels_last or call.shape[-2:] == (1, 1)
+    kept, moved, weights = _node_inputs(call, dtype, seed)
+    _assert_node_matches_plain(kept, moved, call.up, weights)
+
+
+# (node output shape, kept inputs, up, weighted): both directions, one and
+# two kept inputs (nodes of two and three inputs), odd output sizes
+# bottom-up (the pool's window stops at the fine map's edge), one pixel,
+# and D7x's width
+NODE_EDGES = {
+    "up_one_kept_weighted": ((2, 16, 4, 6), 1, True, True),
+    "up_two_kept_plain": ((1, 24, 8, 2), 2, True, False),
+    "down_two_kept_weighted_odd": ((2, 8, 3, 5), 2, False, True),
+    "down_one_kept_plain_one_pixel": ((3, 16, 1, 1), 1, False, False),
+    "down_c384_plain": ((1, 384, 6, 6), 2, False, False),
+    "up_c384_weighted": ((1, 384, 6, 4), 1, True, True),
+}
+
+
+def _node_edge_call(edge, layout="nhwc"):
+    shape, kept, up, weighted = NODE_EDGES[edge]
+    return xf.NodeCall(shape, kept, up, weighted, layout == "nhwc")
+
+
+def _node_twin_at_edge(edge, dtype, layout):
+    kept, moved, weights = _node_inputs(_node_edge_call(edge, layout), dtype,
+                                        list(NODE_EDGES).index(edge), layout)
+    _assert_node_matches_plain(kept, moved, NODE_EDGES[edge][2], weights)
+
+
+NODE_OPCHECKS = {"up_weighted": "up_one_kept_weighted", "up_plain": "up_two_kept_plain",
+                 "down_weighted": "down_two_kept_weighted_odd",
+                 "down_plain": "down_one_kept_plain_one_pixel"}
+
+
+def _node_opcheck(case):
+    edge = NODE_OPCHECKS[case]
+    kept, moved, weights = _node_inputs(_node_edge_call(edge), torch.float32, 1)
+    torch.library.opcheck(LIB.bifpn_node.default, (kept, moved, NODE_EDGES[edge][2], weights))
+
+
+def _node_fake_shapes():
+    with torch.device("meta"):
+        kept = [torch.empty(2, 16, 6, 4).contiguous(memory_format=torch.channels_last)] * 2
+        up = LIB.bifpn_node(kept[:1], torch.empty(2, 16, 3, 2), True, torch.empty(2))
+        down = LIB.bifpn_node(kept, torch.empty(2, 16, 12, 8), False, None)
+    for y in (up, down):
+        assert y.shape == (2, 16, 6, 4) and y.is_contiguous(memory_format=torch.channels_last)
+
+
+def _node_refusals():
+    call = xf.NodeCall((1, 16, 4, 4), 2, False, True, True)
+    kept, moved, weights = _node_inputs(call, torch.float32, 0)
+    out = torch.empty_like(kept[0])
+    with pytest.raises(ValueError, match="one or two"):
+        bn.launch_into(kept * 2, moved, False, weights, out)
+    with pytest.raises(TypeError):
+        bn.launch_into([t.double() for t in kept], moved.double(), False, weights, out.double())
+    with pytest.raises(ValueError):  # C not a multiple of 8
+        bn.launch_into([t[:, :12] for t in kept], moved[:, :12], False, weights, out[:, :12])
+    with pytest.raises(ValueError):  # the moved input at the node's own size
+        bn.launch_into(kept, kept[0], False, weights, out)
+    with pytest.raises(TypeError):
+        bn.launch_into(kept, moved.to(torch.bfloat16), False, weights, out)
+    with pytest.raises(ValueError):  # weights of another dtype or count
+        bn.launch_into(kept, moved, False, weights.double(), out)
+    with pytest.raises(ValueError):
+        bn.launch_into(kept, moved, False, weights[:2], out)
+    with pytest.raises(ValueError, match="channels-last"):
+        bn.launch_into([t.contiguous() for t in kept], moved, False, weights, out)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bn.bifpn_node([t.to("meta") for t in kept], moved.to("meta"), False, None)
+
+
+def _node_rule(worst, dtype):
+    """Within its stated allowance of the twin run in float32
+    (``folded_ops.node_check``), and bf16 within one ulp of it rounded
+    once."""
+    assert worst["excess"] <= 1.0, worst
+    if dtype == torch.bfloat16:
+        assert worst["ulps"] <= 1, worst
+
+
+def _node_largest_on_the_gpu(dtype):
+    """D4@1024 batch 64's two largest nodes: P3's output (its moved P4
+    upsampled) and P4's bottom-up node (P3 pooled), 2.35e8 elements an
+    output."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for call in (xf.NodeCall((64, 224, 128, 128), 1, True, True, True),
+                 xf.NodeCall((64, 224, 64, 64), 2, False, True, True)):
+        kept, moved, weights = xf.node_inputs(call, dtype, gen)
+        out = bn.bifpn_node(kept, moved, call.up, weights)
+        assert torch.equal(out, bn.bifpn_node(kept, moved, call.up, weights))
+        _node_rule(xf.node_check(out, kept, moved, call.up, weights, chunk=4), dtype)
+        del kept, moved, out
+
+
+def _node_edges_on_the_gpu(dtype):
+    """Every edge in both layouts, two runs equal bit for bit."""
+    for edge in NODE_EDGES:
+        for layout in LAYOUTS:
+            call = _node_edge_call(edge, layout)
+            kept, moved, weights = xf.node_inputs(
+                call, dtype, torch.Generator(device="cuda").manual_seed(sum(call.shape)))
+            out = bn.bifpn_node(kept, moved, call.up, weights)
+            assert torch.equal(out, bn.bifpn_node(kept, moved, call.up, weights))
+            assert out.is_contiguous(memory_format=LAYOUTS[layout]) or call.shape[-2:] == (1, 1)
+            _node_rule(xf.node_check(out, kept, moved, call.up, weights), dtype)
+
+
 # ------------------------------------------------------- each op's entry
 
 
@@ -350,16 +511,22 @@ HELD = {
                            _depthwise_opcheck, _depthwise_fake_shapes, _depthwise_refusals,
                            _depthwise_rule, _depthwise_largest_on_the_gpu,
                            _depthwise_edges_on_the_gpu),
+    "bifpn_node": Held(_node_calls, _node_twin_at_call, _node_twin_at_edge, _node_opcheck,
+                       _node_fake_shapes, _node_refusals, _node_rule, _node_largest_on_the_gpu,
+                       _node_edges_on_the_gpu),
 }
 
 # (op, where): the epilogue at four of B0's calls a case, the depthwise
-# conv at every call of a phi's forward
+# conv and the node op at every call of a phi's forward
 CALL_CASES = ([("conv_epilogue", i) for i in range(0, 48, 4)]
-              + [("depthwise_conv", phi) for phi in PHIS])
+              + [("depthwise_conv", phi) for phi in PHIS]
+              + [("bifpn_node", phi) for phi in PHIS])
 EDGE_CASES = ([("conv_epilogue", e) for e in EPILOGUE_EDGES]
-              + [("depthwise_conv", e) for e in DEPTHWISE_EDGES])
+              + [("depthwise_conv", e) for e in DEPTHWISE_EDGES]
+              + [("bifpn_node", e) for e in NODE_EDGES])
 OPCHECK_CASES = ([("conv_epilogue", c) for c in ("plain", "residual")]
-                 + [("depthwise_conv", c) for c in DEPTHWISE_OPCHECKS])
+                 + [("depthwise_conv", c) for c in DEPTHWISE_OPCHECKS]
+                 + [("bifpn_node", c) for c in NODE_OPCHECKS])
 
 
 # -------------------------------------------------------------- the twins
@@ -451,7 +618,7 @@ def test_the_harness_holds_the_float32_twin_to_the_kernels_rule(op):
     forward on the CPU, where each op runs its twin: in float32 the check's
     reference computes what the twin does, so every call meets the rule the
     card's kernel is held to."""
-    calls, worst = xf.forward_calls(random_folded_backbone(0), cpu_images(1, 3), check=(op,))
+    calls, worst = xf.forward_calls(random_folded_model(0), cpu_images(1, 3), check=(op,))
     assert len(calls[op]) == CALLS_PER_FORWARD[op][0]
     HELD[op].rule(worst[op], torch.float32)
 
@@ -466,6 +633,10 @@ TRAFFIC = {
     # float32 SE sums; 2 k^2 + 5 operations an output
     "depthwise_conv": (xf.DepthwiseCall((2, 16, 9, 9), 3, 2, (0, 1, 0, 1), True),
                        2 * (2592 + 512 + 16 * 10) + 4 * 2 * 16, 512 * 23),
+    # two kept inputs and the output (3 x 768 elements), the moved 2 x 16 x
+    # 8 x 12 read once at its own level, 3 float32 weights
+    "bifpn_node": (xf.NodeCall((2, 16, 4, 6), 2, False, True, True),
+                   2 * (3 * 768 + 3072) + 4 * 3, 0),
 }
 
 
@@ -479,9 +650,10 @@ def test_traffic_counts_each_byte_once(op):
 
 
 # (op, phi, batch): the epilogue at D0@512's benchmark batch, the depthwise
-# conv at every inference cell's phi
+# conv and the node op at every inference cell's phi
 GPU_CALL_CASES = [("conv_epilogue", 0, 128), ("depthwise_conv", 0, 16),
-                  ("depthwise_conv", 4, 4), ("depthwise_conv", "7x", 2)]
+                  ("depthwise_conv", 4, 4), ("depthwise_conv", "7x", 2),
+                  ("bifpn_node", 0, 16), ("bifpn_node", 4, 4), ("bifpn_node", "7x", 2)]
 
 
 @pytest.mark.cuda
@@ -492,11 +664,11 @@ def test_kernel_against_twin_at_every_call_on_the_gpu(op, phi, batch, dtype):
     inputs (channels-last, as on the detector's path), and its launches:
     one a call."""
     need_cuda()
-    backbone, cfg = xf.folded_backbone(phi, DTYPES[dtype])
+    model, cfg = xf.folded_model(phi, DTYPES[dtype])
     images = xf.nhwc_images(batch, cfg.image_size, DTYPES[dtype],
                             torch.Generator(device="cuda").manual_seed(7))
     before = xf.counts()
-    calls, worst = xf.forward_calls(backbone, images, check=(op,))
+    calls, worst = xf.forward_calls(model, images, check=(op,))
     assert all(c.channels_last for c in calls[op])
     assert xf.counts()[f"{op}.launches"] - before[f"{op}.launches"] == len(calls[op])
     assert len(calls[op]) == CALLS_PER_FORWARD[op][phi]
@@ -507,7 +679,7 @@ def test_kernel_against_twin_at_every_call_on_the_gpu(op, phi, batch, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("op,dtype", [("conv_epilogue", "f32"), ("conv_epilogue", "bf16"),
-                                      ("depthwise_conv", "bf16")])
+                                      ("depthwise_conv", "bf16"), ("bifpn_node", "bf16")])
 def test_kernel_at_d4s_largest_call_on_the_gpu(op, dtype):
     """Each op's largest call of the ``d4-b64`` cell, past 2^31 elements."""
     need_cuda()
